@@ -5,7 +5,9 @@ this one is the state tree — ring buffers, filter taps, phasors and
 smoothed params — with the same keys, nesting, shapes and dtypes in both
 packages.  The JAX side hands it over with its leaves converted to numpy
 (``jax.tree.map(np.asarray, state)``); int32 counters (``n_abs``, ``row``)
-stay int32.
+stay int32, and the ring mod's and bitcrusher's uint32 phase accumulators
+(``acc``) stay uint32 bit for bit: the port keeps them as ``torch.uint32``
+and does their arithmetic in int64 (models/ringmod.py).
 """
 
 from __future__ import annotations

@@ -35,6 +35,21 @@
 // Parallelising over combs, files or a chunked look-back is later work.
 // Built with -fmad=false like the tap kernel, so every product rounds as
 // in the plain version's separate eager ops.
+//
+// Kernel K4: the same comb bank with full per-chunk outputs.
+//
+// Replaces the TPU kernel aefs_tpu/ops/pallas/comb.py:_make_kernel
+// (entered through comb_bank_file_pallas <- ringbuf.comb_bank_file_chunks).
+// The TPU kernel keeps a (C, C) damping propagator resident in VMEM and
+// writes every comb's y and damped chunk; at C = 1408 the propagator is
+// 7.9 MB, far beyond an SM's 227 KB of shared memory, so here the damping
+// is K2's log-step Hillis scan (traced h, no FIR) and the same kernel
+// runs with the per-side sums and the tail switched off and y / damped
+// written for every chunk into (M, B, C) outputs.  With the default
+// identity side map every comb is its own side: one block per comb.
+// Bound like K2 by the chain of sequential chunk steps; the outputs add
+// 2 x M x B x C floats of coalesced writes (57 MB for the demo file with
+// 8 combs), far below what the device memory moves in that time.
 
 #include <cuda_runtime.h>
 
@@ -56,7 +71,9 @@ comb_sums_kernel(const float* __restrict__ x, int n,
                                  const float* __restrict__ fir_w, int n_taps,
                                  CombGeom geom, int c, int m, int n_sides,
                                  float* __restrict__ ysum,
-                                 float* __restrict__ d_tail) {
+                                 float* __restrict__ d_tail,
+                                 float* __restrict__ y_out,
+                                 float* __restrict__ d_out) {
   extern __shared__ float sm[];
   __shared__ float dlast[AEFS_MAX_COMBS];
 
@@ -77,7 +94,7 @@ comb_sums_kernel(const float* __restrict__ x, int n,
   for (int i = tid; i < nb * 2 * c; i += nt) dh[i] = 0.f;
   for (int i = tid; i < 2 * nb * cp; i += nt) ya[i] = 0.f;
   if (tid < nb) dlast[tid] = 0.f;
-  for (int r = 0; r < 3 && m - 3 + r < 0; ++r)
+  for (int r = 0; d_tail && r < 3 && m - 3 + r < 0; ++r)
     for (int idx = tid; idx < nb * c; idx += nt)
       d_tail[((size_t)r * geom.b + combs[idx / c]) * c + idx % c] = 0.f;
   __syncthreads();
@@ -96,7 +113,9 @@ comb_sums_kernel(const float* __restrict__ x, int n,
         const int ks = (int)(src / c);
         r = dh[bl * 2 * c + (ks & 1) * c + (int)(src - (long)ks * c)];
       }
-      ya[bl * cp + AEFS_FIR_PAD + i] = xs + g[b] * r;
+      const float yv = xs + g[b] * r;
+      ya[bl * cp + AEFS_FIR_PAD + i] = yv;
+      if (y_out) y_out[((size_t)k * geom.b + b) * c + i] = yv;
     }
     __syncthreads();
 
@@ -163,13 +182,15 @@ comb_sums_kernel(const float* __restrict__ x, int n,
     __syncthreads();
     if (tid < nb) dlast[tid] = dh[tid * 2 * c + slot + c - 1];
 
-    // 4. the last three true chunks become d_tail.
+    // 4. the damped chunk to d_out (K4); the last three to d_tail (K2).
     const int r = k - (m - 3);
-    if (r >= 0) {
+    const bool tail = d_tail && r >= 0;
+    if (d_out || tail) {
       for (int idx = tid; idx < nb * c; idx += nt) {
         const int bl = idx / c, i = idx - bl * c;
-        d_tail[((size_t)r * geom.b + combs[bl]) * c + i] =
-            dh[bl * 2 * c + slot + i];
+        const float v = dh[bl * 2 * c + slot + i];
+        if (d_out) d_out[((size_t)k * geom.b + combs[bl]) * c + i] = v;
+        if (tail) d_tail[((size_t)r * geom.b + combs[bl]) * c + i] = v;
       }
     }
     __syncthreads();
@@ -178,18 +199,13 @@ comb_sums_kernel(const float* __restrict__ x, int n,
 
 }  // namespace
 
-// x (x_rows, n) float32, g (b,), h scalar, fir_w (n_taps,) — all device
-// pointers (fir_w may be null when n_taps == 0, which selects the scan);
-// lags/side_of (b,) are HOST int arrays.  ysum (n_sides, m, c) and
-// d_tail (3, b, c) are device outputs.  One block per side; returns
-// cudaGetLastError() (or the attribute call's error when the shared
-// memory the side needs exceeds the device limit).
-extern "C" int aefs_comb_sums(const float* x, int x_rows, int n,
-                              const float* g, const float* h,
-                              const float* fir_w, int n_taps, const int* lags,
-                              const int* side_of, int b, int c, int m,
-                              int n_sides, float* ysum, float* d_tail,
-                              cudaStream_t stream) {
+// Shared launcher: validates the geometry, sizes the dynamic shared memory
+// for the largest side and launches one block per side.
+static int launch_comb(const float* x, int x_rows, int n, const float* g,
+                       const float* h, const float* fir_w, int n_taps,
+                       const int* lags, const int* side_of, int b, int c,
+                       int m, int n_sides, float* ysum, float* d_tail,
+                       float* y_out, float* d_out, cudaStream_t stream) {
   if (b < 1 || b > AEFS_MAX_COMBS || n_taps > AEFS_FIR_PAD || c < 1 || m < 1)
     return (int)cudaErrorInvalidValue;
   CombGeom geom;
@@ -215,6 +231,34 @@ extern "C" int aefs_comb_sums(const float* x, int x_rows, int n,
       comb_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   comb_sums_kernel<<<n_blocks, threads, smem, stream>>>(
-      x, n, g, h, fir_w, n_taps, geom, c, m, n_sides, ysum, d_tail);
+      x, n, g, h, fir_w, n_taps, geom, c, m, n_sides, ysum, d_tail, y_out, d_out);
   return (int)cudaGetLastError();
+}
+
+// Kernel K2.  x (x_rows, n) float32, g (b,), h scalar, fir_w (n_taps,) —
+// all device pointers (fir_w may be null when n_taps == 0, which selects
+// the scan); lags/side_of (b,) are HOST int arrays.  ysum (n_sides, m, c)
+// and d_tail (3, b, c) are device outputs.  One block per side; returns
+// cudaGetLastError() (or the attribute call's error when the shared memory
+// the side needs exceeds the device limit).
+extern "C" int aefs_comb_sums(const float* x, int x_rows, int n,
+                              const float* g, const float* h,
+                              const float* fir_w, int n_taps, const int* lags,
+                              const int* side_of, int b, int c, int m,
+                              int n_sides, float* ysum, float* d_tail,
+                              cudaStream_t stream) {
+  return launch_comb(x, x_rows, n, g, h, fir_w, n_taps, lags, side_of, b, c, m,
+                     n_sides, ysum, d_tail, nullptr, nullptr, stream);
+}
+
+// Kernel K4.  Same operands as aefs_comb_sums with traced h only (scan
+// damping); y_out and d_out (m, b, c) device outputs receive every comb's
+// y and damped chunk.  One block per side of side_of.
+extern "C" int aefs_comb_chunks(const float* x, int x_rows, int n,
+                                const float* g, const float* h,
+                                const int* lags, const int* side_of, int b,
+                                int c, int m, float* y_out, float* d_out,
+                                cudaStream_t stream) {
+  return launch_comb(x, x_rows, n, g, h, nullptr, 0, lags, side_of, b, c, m, 0,
+                     nullptr, nullptr, y_out, d_out, stream);
 }

@@ -27,6 +27,20 @@
 // (a few microseconds), not by bytes or FLOPs.  A whole-file call
 // (N ~ 10^6) is a gather over a stream that fits in L2, bound by the
 // load path; neither case is worth tiling yet.
+//
+// Kernel K3: one stream's tap read, rows in one launch.
+//
+// Replaces the TPU kernel aefs_tpu/ops/pallas/resample.py:_resample_kernel
+// (entered through catmull_rom_resample <- ringbuf.fractional_read_resample).
+// The TPU kernel anchors a window per tile and position cluster and
+// evaluates the read as a one-hot band times the window, with its frac
+// taken as qw - floor(qw) in window coordinates; the wrap lanes are patched
+// outside by _wrap_patch.  Here it is the same gather as K1 (tap_read,
+// frac = ceil(ago) - ago, wrap lanes folded in), one thread per (row,
+// sample): equal to the plain gather bit for bit, within float rounding
+// of the TPU kernel's band form.  Bound like K1: launch latency at the
+// chorus's streaming shape (2 rows x 256), the load path at a whole file
+// (2 rows x ~10^6, a 7 MB stream that fits in L2).
 
 #include <cuda_runtime.h>
 
@@ -59,6 +73,30 @@ __device__ __forceinline__ int wrap_back(int ca, int off, int size) {
   return 0;
 }
 
+// One Hermite read at distance ``a`` for output sample j of a block of n
+// on the stream hist (size,) ++ x (n,), with the reference's wrap lanes.
+__device__ __forceinline__ float tap_read(const float* __restrict__ hist,
+                                          const float* __restrict__ x,
+                                          int size, int n, int j, float a) {
+  const float caf = ceilf(a);
+  const float frac = caf - a;
+  const int ca = (int)caf;
+  if (ca <= 1 || ca >= size - 1) {
+    return hermite(frac,
+                   ext_at(hist, x, size, size - wrap_back(ca, 1, size) + j),
+                   ext_at(hist, x, size, size - wrap_back(ca, 0, size) + j),
+                   ext_at(hist, x, size, size - wrap_back(ca, -1, size) + j),
+                   ext_at(hist, x, size, size - wrap_back(ca, -2, size) + j));
+  }
+  int start = size + j - (ca + 1);
+  start = start < 0 ? 0 : start;
+  start = start > size + n - 4 ? size + n - 4 : start;
+  return hermite(frac, ext_at(hist, x, size, start),
+                 ext_at(hist, x, size, start + 1),
+                 ext_at(hist, x, size, start + 2),
+                 ext_at(hist, x, size, start + 3));
+}
+
 __global__ void octaver_taps_kernel(const float* __restrict__ hist,
                                     const float* __restrict__ x,
                                     const float* __restrict__ ago1,
@@ -69,27 +107,22 @@ __global__ void octaver_taps_kernel(const float* __restrict__ hist,
   if (t >= 2 * n) return;
   const int tap = t >= n;
   const int j = t - tap * n;
-  const float a = (tap ? ago2 : ago1)[j];
-  const float caf = ceilf(a);
-  const float frac = caf - a;
-  const int ca = (int)caf;
-  float r;
-  if (ca <= 1 || ca >= size - 1) {
-    r = hermite(frac,
-                ext_at(hist, x, size, size - wrap_back(ca, 1, size) + j),
-                ext_at(hist, x, size, size - wrap_back(ca, 0, size) + j),
-                ext_at(hist, x, size, size - wrap_back(ca, -1, size) + j),
-                ext_at(hist, x, size, size - wrap_back(ca, -2, size) + j));
-  } else {
-    int start = size + j - (ca + 1);
-    start = start < 0 ? 0 : start;
-    start = start > size + n - 4 ? size + n - 4 : start;
-    r = hermite(frac, ext_at(hist, x, size, start),
-                ext_at(hist, x, size, start + 1),
-                ext_at(hist, x, size, start + 2),
-                ext_at(hist, x, size, start + 3));
-  }
-  (tap ? s2 : s1)[j] = r;
+  (tap ? s2 : s1)[j] = tap_read(hist, x, size, n, j, (tap ? ago2 : ago1)[j]);
+}
+
+// Kernel K3: one stream's read per row, rows independent (the chorus reads
+// both channels in one launch).  The flat (row, sample) index is 64-bit:
+// rows * n reaches 2 x 892,800 for a whole-file render.
+__global__ void fractional_read_kernel(const float* __restrict__ hist,
+                                       const float* __restrict__ x,
+                                       const float* __restrict__ ago,
+                                       float* __restrict__ out, int rows,
+                                       int size, int n) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long long)rows * n) return;
+  const long long r = t / n;
+  const int j = (int)(t - r * n);
+  out[t] = tap_read(hist + r * size, x + r * n, size, n, j, ago[t]);
 }
 
 }  // namespace
@@ -104,5 +137,19 @@ extern "C" int aefs_octaver_taps(const float* hist, const float* x,
   const int blocks = (2 * n + threads - 1) / threads;
   octaver_taps_kernel<<<blocks, threads, 0, stream>>>(hist, x, ago1, ago2, s1,
                                                       s2, size, n);
+  return (int)cudaGetLastError();
+}
+
+// Kernel K3.  hist (rows, size), x (rows, n), ago (rows, n) float32 on the
+// device; out (rows, n).  Launches on ``stream``; returns cudaGetLastError().
+extern "C" int aefs_fractional_read(const float* hist, const float* x,
+                                    const float* ago, float* out, int rows,
+                                    int size, int n, cudaStream_t stream) {
+  const int threads = 256;
+  const long long total = (long long)rows * n;
+  const long long blocks = (total + threads - 1) / threads;
+  if (rows < 1 || n < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fractional_read_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+      hist, x, ago, out, rows, size, n);
   return (int)cudaGetLastError();
 }

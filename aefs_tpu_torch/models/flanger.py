@@ -1,0 +1,213 @@
+"""Flanger with feedback: LFO-swept fractional-delay comb whose output
+recirculates into the delay line (port of aefs_tpu/models/flanger.py).
+
+Per channel:
+    d[n] = clip((base_ms + depth_ms*sin(2*pi*ph[n])) * fs/1000, 24, Hmax)
+    v[n] = x[n] + feedback * s[n]        (delay-line signal)
+    s[n] = cubic tap of v at distance d[n]
+    y[n] = (1-mix) * x[n] + mix * s[n]
+
+The tap reaches at least D_MIN - 2 = 22 samples back, so over a 256-sample
+chunk the in-chunk part of the read operator is nilpotent and v = x +
+fb*T(v) is solved exactly by 12 fixed-point sweeps.  ``process`` runs any
+block as the same sequence of 256-sample chunks, so 256-sample streaming
+and 4096-sample blocks agree bit for bit.  ``process_file`` takes the
+reference's batched form: all chunk phases from the parallel double-single
+ramp, the in-chunk operator squared twice, four matvecs per chunk.
+
+The tap operator is the reference's dense form (cubic one-hot weights,
+``ops/ringbuf.py:cubic_onehot_matrix``) and its products are plain fp32
+matmuls, as the reference leaves them to XLA outside any kernel; keeping
+the same weights and sums keeps the port within float rounding of it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from aefs_tpu_torch.core.params import ParamSpec
+from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.lfo import (
+    TWO_PI, f64, fs_tensor, lfo_advance, lfo_ramp, spread_channels)
+from aefs_tpu_torch.models.octaver import _two_sum
+from aefs_tpu_torch.ops.ringbuf import cubic_onehot_matrix, cubic_tap_weights, onehot_matrix
+from aefs_tpu_torch.ops.scan import _matmul
+
+MAX_BASE_MS = 10.0
+MAX_DEPTH_MS = 5.0
+D_MIN = 24.0     # samples; bounds the nilpotency degree
+_CHUNK = 256
+_SWEEPS = 12     # ceil(_CHUNK / (D_MIN - 2))
+_FILE_BATCH = 8  # chunks whose operators are built and squared together
+
+
+def _mv(mat, z):
+    """Batched matrix-vector product: (..., N, M) @ (..., M) -> (..., N)."""
+    return _matmul(mat, z[..., None])[..., 0]
+
+
+def _ds_phase(i, dph, hi0, lo0):
+    """Double-single phase hi + lo ~= hi0 + lo0 + i*dph (hi in [0, 1)) for
+    float32 sample indices i < 2^24: i and dph are Veltkamp-split so every
+    partial product is exact, then TwoSum-accumulated."""
+    s = dph * 4097.0
+    d_hi = s - (s - dph)
+    d_lo = dph - d_hi
+    i_hi = torch.floor(i * (1.0 / 4096.0)) * 4096.0
+    i_lo = i - i_hi
+    hi, e1 = _two_sum(i_hi * d_hi, i_hi * d_lo)
+    hi, e2 = _two_sum(hi, i_lo * d_hi)
+    lo = e1 + e2 + i_lo * d_lo
+    hi, e3 = _two_sum(hi, hi0)
+    lo = lo + (e3 + lo0)
+    return hi - torch.floor(hi), lo
+
+
+class Flanger(EffectModel):
+    kind = "flanger"
+
+    PARAMS = {
+        "rate_hz": ParamSpec(0.3, 0.05, 5.0, smooth="mult", step=0.05),
+        "depth_ms": ParamSpec(2.0, 0.0, MAX_DEPTH_MS, smooth="step", step=0.1),
+        "base_ms": ParamSpec(2.5, 0.5, MAX_BASE_MS, smooth="step", step=0.25),
+        "feedback": ParamSpec(0.6, -0.9, 0.9, smooth="step", step=0.02),
+        "mix": ParamSpec(0.5, 0.0, 1.0, smooth="instant"),
+        "spread": ParamSpec(0.0, 0.0, 0.5, smooth="instant"),
+    }
+
+    def __init__(self, fs, blocksize, channels=2, **config):
+        super().__init__(fs, blocksize, channels, **config)
+        self.hist_len = int((MAX_BASE_MS + MAX_DEPTH_MS) * fs / 1000.0) + 8
+
+    def init_state(self):
+        zero = torch.zeros((), device=self.device)
+        return {
+            "hist": torch.zeros((self.channels, self.hist_len), device=self.device),
+            "ph_hi": zero,
+            "ph_lo": zero.clone(),
+        }
+
+    def _delay(self, p, ph_c, fs):
+        """Delay in samples for (..., C, K) phases, clipped to [D_MIN, H-2]."""
+        delay_ms = p["base_ms"] + p["depth_ms"] * f64(torch.sin, TWO_PI * ph_c)
+        ms_per_s = torch.full((), 1000.0, device=fs.device)
+        return torch.clamp(delay_ms * (fs / ms_per_s), D_MIN, float(self.hist_len - 2))
+
+    def _chunk(self, p, fs, dph, hist, hi, lo, xc):
+        """One 256-sample chunk: 12 exact sweeps on the dense tap operator."""
+        H, K = self.hist_len, _CHUNK
+        fb = p["feedback"]
+        ph_c = spread_channels(lfo_ramp(hi, lo, dph, K), p["spread"], xc.shape[0])
+        d = self._delay(p, ph_c, fs)
+        ca = torch.ceil(d).to(torch.int32)
+        fr = torch.ceil(d) - d
+        base = H + torch.arange(K, dtype=torch.int32, device=xc.device)
+        weights = cubic_onehot_matrix(base[None, :] - ca - 1, fr, H + K)  # (C, K, H+K)
+        # The history half contracts once; the sweeps iterate only the
+        # strictly lower in-chunk quarter (taps reach >= 22 back).
+        w_h, w_c = weights[:, :, :H], weights[:, :, H:]
+        th = _mv(w_h, hist)
+        b = xc + fb * th
+        v = torch.zeros_like(xc)
+        for _ in range(_SWEEPS):
+            v = b + fb * _mv(w_c, v)
+        tap = th + _mv(w_c, v)
+        y = (1.0 - p["mix"]) * xc + p["mix"] * tap
+        new_hist = torch.cat([hist, v], 1)[:, -H:]
+        nhi, nlo = lfo_advance(hi, lo, dph, K)
+        return new_hist, nhi, nlo, y, v
+
+    def process(self, state, p, x):
+        c, n = x.shape
+        fs = fs_tensor(self.fs, x.device)
+        dph = p["rate_hz"] / fs
+        pad = (-n) % _CHUNK
+        xp = F.pad(x, (0, pad)) if pad else x
+        hist, hi, lo = state["hist"], state["ph_hi"], state["ph_lo"]
+        ys, vs = [], []
+        for k in range(xp.shape[1] // _CHUNK):
+            hist, hi, lo, y, v = self._chunk(p, fs, dph, hist, hi, lo,
+                                             xp[:, k * _CHUNK:(k + 1) * _CHUNK])
+            ys.append(y)
+            vs.append(v)
+        return self._finish(state, dph, pad, n, torch.cat(ys, 1), torch.cat(vs, 1),
+                            hist, hi, lo)
+
+    def _finish(self, state, dph, pad, n, ys, vs, hist_f, hi_f, lo_f):
+        """Unpad (C, total) outputs and, when padded, rebuild the carry from
+        the unpadded delay-line signal and sample count."""
+        if pad:
+            hist_f = torch.cat([state["hist"], vs[:, :n]], 1)[:, -self.hist_len:]
+            hi_f, lo_f = lfo_advance(state["ph_hi"], state["ph_lo"], dph, n)
+        return {"hist": hist_f, "ph_hi": hi_f, "ph_lo": lo_f}, ys[:, :n]
+
+    def process_file(self, state, p, x):
+        """Whole-file path: per batch of 8 chunks, one one-hot compare builds
+        every tap position; the in-chunk quarter C is squared (C2, C4) so the
+        exact solve (I - fb*C)^-1 = (I + fb C)(I + fb^2 C2)(I + fb^4 C4 +
+        fb^8 C4^2), valid since C^12 = 0, takes 4 dependent matvecs per
+        chunk instead of 12."""
+        c, n = x.shape
+        dev = x.device
+        fs = fs_tensor(self.fs, dev)
+        dph = p["rate_hz"] / fs
+        fb = p["feedback"]
+        H, K, SB = self.hist_len, _CHUNK, _FILE_BATCH
+
+        step_len = K * SB
+        steps = -(-n // step_len)
+        total = steps * step_len
+        pad = total - n
+        xp = F.pad(x, (0, pad)) if pad else x
+        m = total // K
+
+        # Every chunk's start phase from the parallel ramp; in-chunk phase
+        # is the same hi + (lo + idx*dph) as the blockwise step.
+        gi = torch.arange(m, dtype=torch.float32, device=dev) * float(K)
+        chi, clo = _ds_phase(gi, dph, state["ph_hi"], state["ph_lo"])
+        idx = torch.arange(K, dtype=torch.float32, device=dev)
+        ph = chi[:, None] + (clo[:, None] + idx[None, :] * dph)  # (m, K)
+        chan = torch.arange(c, dtype=torch.float32, device=dev)
+        ph_c = ph[:, None, :] + p["spread"] * chan[None, :, None]
+        d = self._delay(p, ph_c, fs)  # (m, C, K)
+        ca = torch.ceil(d).to(torch.int32)
+        fr = torch.ceil(d) - d
+        base = H + torch.arange(K, dtype=torch.int32, device=dev)
+        t0 = base[None, None, :] - ca - 1  # (m, C, K) first-tap ext column
+
+        xs = xp.reshape(c, steps, SB, K).permute(1, 2, 0, 3)  # (steps, SB, C, K)
+        fb2 = fb * fb
+        fb4 = fb2 * fb2
+        hist = state["hist"]
+        ys, vs = [], []
+        for st in range(steps):
+            sl = slice(st * SB, (st + 1) * SB)
+            onehot = onehot_matrix(t0[sl], H + K)  # (SB, C, K, H+K)
+            w = cubic_tap_weights(fr[sl])
+            # In-chunk quarter: tap k at ext column t0+k == H+j  <=>  one-hot
+            # column H+j-k.
+            cm = sum(w[k][..., None] * onehot[..., H - k:H - k + K] for k in range(4))
+            c2 = _matmul(cm, cm)
+            c4 = _matmul(c2, c2)
+            oh = onehot[..., :H]
+            for s in range(SB):
+                # History tap: four shifted history reads against the same
+                # one-hot (reads crossing into the chunk hit the pad's zeros
+                # and are taken by cm).
+                hist_pad = F.pad(hist, (0, 3))
+                hstack = torch.stack([hist_pad[:, k:k + H] for k in range(4)], 1)
+                th4 = _matmul(oh[s], hstack.transpose(1, 2))  # (C, K, 4)
+                th = sum(w[k][s] * th4[..., k] for k in range(4))
+                xc = xs[st, s]
+                b = xc + fb * th
+                u = b + fb4 * _mv(c4[s], b + fb4 * _mv(c4[s], b))
+                u = u + fb2 * _mv(c2[s], u)
+                v = u + fb * _mv(cm[s], u)
+                tap = th + _mv(cm[s], v)
+                ys.append((1.0 - p["mix"]) * xc + p["mix"] * tap)
+                vs.append(v)
+                hist = torch.cat([hist, v], 1)[:, -H:]
+        hi_f, lo_f = lfo_advance(state["ph_hi"], state["ph_lo"], dph, total)
+        return self._finish(state, dph, pad, n, torch.cat(ys, 1), torch.cat(vs, 1),
+                            hist, hi_f, lo_f)

@@ -6,8 +6,8 @@ at first use into ONE shared library with a plain C interface
 the sources and flags so an edited source rebuilds), then loaded with
 ctypes.  No PyTorch headers are compiled, so the build takes seconds.
 
-Each kernel module (``resample.py``, ``comb.py``) holds the wrapper, the
-plain version and a launch counter.  A wrapper takes the plain version
+Each kernel module (``resample.py``: K1, K3; ``comb.py``: K2, K4) holds
+the wrappers, their plain versions and one launch counter per wrapper.  A wrapper takes the plain version
 only for CPU tensors; on CUDA tensors it launches the kernel or raises.
 """
 
@@ -82,9 +82,13 @@ def library():
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.aefs_octaver_taps.argtypes = [p, p, p, p, p, p, i, i, p]
             lib.aefs_octaver_taps.restype = i
+            lib.aefs_fractional_read.argtypes = [p, p, p, p, i, i, i, p]
+            lib.aefs_fractional_read.restype = i
             lib.aefs_comb_sums.argtypes = [
                 p, i, i, p, p, p, i, p, p, i, i, i, i, p, p, p]
             lib.aefs_comb_sums.restype = i
+            lib.aefs_comb_chunks.argtypes = [p, i, i, p, p, p, p, i, i, i, p, p, p]
+            lib.aefs_comb_chunks.restype = i
             _lib = lib
     return _lib
 

@@ -1,10 +1,12 @@
-"""Kernel K2: whole-file reverb comb sums (csrc/comb.cu) and its plain
-PyTorch version.
+"""Kernels K2 (whole-file reverb comb sums) and K4 (the same comb bank
+with every chunk's y and damped), both in csrc/comb.cu, and their plain
+PyTorch versions.
 
-Replaces the TPU kernel ``aefs_tpu/ops/pallas/comb.py:_make_sums_kernel``
-(contract of ``comb_bank_file_pallas_sums``).  The TPU kernel carries the
-chunk recursion across sequential grid steps; the CUDA kernel runs the
-chunk loop inside one thread block per side.  The plain version is the
+K2 replaces the TPU kernel ``aefs_tpu/ops/pallas/comb.py:_make_sums_kernel``
+(contract of ``comb_bank_file_pallas_sums``), K4 replaces ``comb.py:_make_kernel``
+(contract of ``comb_bank_file_pallas``).  The TPU kernels carry the chunk
+recursion across sequential grid steps; the CUDA kernel runs the chunk loop
+inside one thread block per side.  The plain versions share one loop, the
 reference's exact-recursion fallback (``ringbuf.comb_bank_file_chunks``'
 XLA path): a full-fp32 (C, C) damping propagator per chunk.
 """
@@ -43,9 +45,10 @@ def fir_damp_weights(h_static: float, budget: int = _FIR_TAP_BUDGET):
     return tuple(np.float32((1.0 - h) * h**t) for t in range(j + 1))
 
 
-def comb_sums_plain(x, g, h, lags, c, side_of, n_sides):
-    """Plain version: the exact chunk recursion with a (C, C) propagator
-    T_h[j, i] = h^(j-i) per chunk.  Same contract as ``comb_sums``."""
+def comb_chunks_plain(x, g, h, lags, c, side_of):
+    """Plain version of K4: the exact chunk recursion with a (C, C)
+    propagator T_h[j, i] = h^(j-i) per chunk.  Same contract as
+    ``comb_chunks``."""
     from aefs_tpu_torch.ops.scan import _matmul
 
     dev = x.device
@@ -79,8 +82,16 @@ def comb_sums_plain(x, g, h, lags, c, side_of, n_sides):
         d_last = damped[:, -1]
         ys.append(y)
         damps.append(damped)
-    y_mbc = torch.stack(ys)
-    d_mbc = torch.stack(damps)
+    return torch.stack(ys), torch.stack(damps)
+
+
+def comb_sums_plain(x, g, h, lags, c, side_of, n_sides):
+    """Plain version of K2: ``comb_chunks_plain`` reduced to the per-side
+    sums and the last three damped chunks.  Same contract as ``comb_sums``."""
+    dev = x.device
+    b = len(lags)
+    y_mbc, d_mbc = comb_chunks_plain(x, g, h, lags, c, side_of)
+    m = y_mbc.shape[0]
     ysum = torch.stack([
         sum((y_mbc[:, bi] for bi in range(b) if side_of[bi] == si),
             torch.zeros((m, c), device=dev))
@@ -89,6 +100,24 @@ def comb_sums_plain(x, g, h, lags, c, side_of, n_sides):
     k = min(m, 3)
     d_tail = torch.cat([torch.zeros((3 - k, b, c), device=dev), d_mbc[m - k:]])
     return ysum, d_tail
+
+
+def _check_operands(name, x, g, h, lags, c, side_of):
+    """Validate what the comb kernels take (CUDA f32 operands on one
+    device, side_of mapping every comb onto a row of x, C <= L < 2C)."""
+    s_rows = x.shape[0]
+    b = len(lags)
+    require_cuda_f32("x", x)
+    require_cuda_f32("g", g, (b,))
+    require_cuda_f32("h", h, ())
+    if x.ndim != 2:
+        raise ValueError(f"{name}: x must be (S, N), got {tuple(x.shape)}")
+    if len({x.device, g.device, h.device}) != 1:
+        raise ValueError(f"{name} operands must share one device")
+    if len(side_of) != b or not all(0 <= s < s_rows for s in side_of):
+        raise ValueError(f"side_of {side_of} does not map {b} combs onto {s_rows} rows")
+    if not all(c <= lag < 2 * c for lag in lags):
+        raise ValueError(f"comb lags {lags} violate C <= L < 2C for C={c}")
 
 
 def comb_sums(x, g, h, lags, c, side_of, n_sides, h_static=None):
@@ -107,17 +136,9 @@ def comb_sums(x, g, h, lags, c, side_of, n_sides, h_static=None):
     side_of = tuple(int(s) for s in side_of)
     if x.device.type == "cpu":
         return comb_sums_plain(x, g, h, lags, c, side_of, n_sides)
+    _check_operands("comb_sums", x, g, h, lags, c, side_of)
     s_rows, n = x.shape
     b = len(lags)
-    require_cuda_f32("x", x)
-    require_cuda_f32("g", g, (b,))
-    require_cuda_f32("h", h, ())
-    if len({x.device, g.device, h.device}) != 1:
-        raise ValueError("comb_sums operands must share one device")
-    if len(side_of) != b or not all(0 <= s < s_rows for s in side_of):
-        raise ValueError(f"side_of {side_of} does not map {b} combs onto {s_rows} rows")
-    if not all(c <= lag < 2 * c for lag in lags):
-        raise ValueError(f"comb lags {lags} violate C <= L < 2C for C={c}")
     m = -(-n // c)
     fir = None if h_static is None else fir_damp_weights(h_static)
     fir_t = (torch.tensor(np.asarray(fir, np.float32), device=x.device)
@@ -138,3 +159,37 @@ def comb_sums(x, g, h, lags, c, side_of, n_sides, h_static=None):
 
 
 comb_sums.launches = 0
+
+
+def comb_chunks(x, g, h, lags, c, side_of):
+    """Whole-file comb bank with every comb's output and damping state.
+
+    x: (S, N) float32 raw source signals; g: (B,) gains; h: 0-dim traced
+    damping; lags, side_of: static int tuples (B,), every lag in [C, 2C);
+    c: chunk size.
+
+    Returns (y, damped), each (M, B, C), M = ceil(N / C).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in ``comb_chunks.launches``) or raise."""
+    lags = tuple(int(l) for l in lags)
+    side_of = tuple(int(s) for s in side_of)
+    if x.device.type == "cpu":
+        return comb_chunks_plain(x, g, h, lags, c, side_of)
+    _check_operands("comb_chunks", x, g, h, lags, c, side_of)
+    s_rows, n = x.shape
+    b = len(lags)
+    m = -(-n // c)
+    y = torch.empty((m, b, c), dtype=torch.float32, device=x.device)
+    damped = torch.empty((m, b, c), dtype=torch.float32, device=x.device)
+    lags_c = (ctypes.c_int * b)(*lags)
+    side_c = (ctypes.c_int * b)(*side_of)
+    err = library().aefs_comb_chunks(
+        x.data_ptr(), s_rows, n, g.data_ptr(), h.data_ptr(),
+        ctypes.addressof(lags_c), ctypes.addressof(side_c), b, c, m,
+        y.data_ptr(), damped.data_ptr(), stream_ptr(x.device))
+    check(err, "comb_chunks")
+    comb_chunks.launches += 1
+    return y, damped
+
+
+comb_chunks.launches = 0

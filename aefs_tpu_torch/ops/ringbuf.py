@@ -7,10 +7,12 @@ is a block-row ring (one row per block) whose row pointer is an int32
 counter.  Reads at runtime distances are gathers on index tensors, so no
 value ever crosses back to the host inside a block.
 
-The two kernel entries live here with the reference's contracts:
-``fractional_read_resample2`` (both octaver taps, kernel K1) and
-``comb_bank_file_sums`` (whole-file reverb comb sums, kernel K2); both
-dispatch through ``ops/kernels``.
+The four kernel entries live here with the reference's contracts:
+``fractional_read_resample2`` (both octaver taps, kernel K1),
+``fractional_read_resample`` (one stream's tap per row, kernel K3; the
+chorus), ``comb_bank_file_sums`` (whole-file reverb comb sums, kernel K2)
+and ``comb_bank_file_chunks`` / ``comb_bank_file`` (the comb bank with
+every chunk's outputs, kernel K4); all dispatch through ``ops/kernels``.
 """
 
 from __future__ import annotations
@@ -173,12 +175,16 @@ def comb_bank_block_static(hists, lps, x, lags, g, h):
     return y, new_hists, damped[:, -1]
 
 
-def comb_chunk_size(lags) -> int:
-    """Largest 128-aligned chunk C with C <= L < 2C for every lag, else
-    min(lags); raises if no chunk satisfies it."""
-    c = (min(lags) // 128) * 128
-    if not c or not all(c <= lag < 2 * c for lag in lags):
-        c = min(lags)
+def comb_chunk_size(lags, chunk=None) -> int:
+    """``chunk`` when given, else the largest 128-aligned chunk C with
+    C <= L < 2C for every lag, else min(lags); raises if the chunk does
+    not satisfy it."""
+    if chunk:
+        c = int(chunk)
+    else:
+        c = (min(lags) // 128) * 128
+        if not c or not all(c <= lag < 2 * c for lag in lags):
+            c = min(lags)
     if not all(c <= lag < 2 * c for lag in lags):
         raise ValueError(f"comb lags {lags} violate C <= L < 2C for C={c}")
     return c
@@ -204,6 +210,36 @@ def comb_bank_file_sums(x, lags, g, h, side_of, n_sides: int, h_static=None):
     ysum, d_tail = comb_sums(x, g, h, tuple(int(l) for l in lags), c,
                              tuple(side_of), n_sides, h_static)
     return ysum, d_tail, c
+
+
+def comb_bank_file_chunks(x, lags, g, h, chunk=None, side_of=None):
+    """Whole-signal damped comb bank from fresh state, in chunk-major form
+    (kernel K4, ops/kernels/comb.py): the recursion of
+    ``comb_bank_file_sums`` with every comb's output kept.
+
+    x: (S, N) raw source signals; comb b reads ``x[side_of[b]]`` at lag
+    ``lags[b]`` (``side_of`` defaults to the identity, S == B); g: (B,);
+    h: 0-dim traced damping; chunk: C, by default the reference's rule
+    (``comb_chunk_size``).
+
+    Returns (y, damped) as (M, B, C) chunk tensors (N padded to M*C) and C."""
+    from aefs_tpu_torch.ops.kernels.comb import comb_chunks
+
+    lags = tuple(int(l) for l in lags)
+    side_of = tuple(range(len(lags))) if side_of is None else tuple(side_of)
+    c = comb_chunk_size(lags, chunk)
+    y, damped = comb_chunks(x, g, h, lags, c, side_of)
+    return y, damped, c
+
+
+def comb_bank_file(x, lags, g, h, chunk=None):
+    """``comb_bank_file_chunks`` flattened: x (B, N) per-comb input ->
+    (y, damped), each (B, N)."""
+    y_mbc, d_mbc, _ = comb_bank_file_chunks(x, lags, g, h, chunk)
+    b, n = x.shape
+    y = y_mbc.movedim(0, 1).reshape(b, -1)[:, :n]
+    damped = d_mbc.movedim(0, 1).reshape(b, -1)[:, :n]
+    return y, damped
 
 
 def allpass_block(hist, x, a, lag: int):
@@ -242,6 +278,35 @@ def cubic_hermite(frac, y0, y1, y2, y3):
     c2 = y0 - 2.5 * y1 + 2.0 * y2 - 0.5 * y3
     c3 = 0.5 * (y3 - y0) + 1.5 * (y1 - y2)
     return ((c3 * frac + c2) * frac + c1) * frac + c0
+
+
+def cubic_tap_weights(fr):
+    """4-point cubic-Hermite (Catmull-Rom) tap weights at fraction ``fr``:
+    the basis polynomials ``cubic_hermite`` evaluates, for callers that
+    hold the weights and the tap positions apart (the flanger's operator)."""
+    w0 = fr * (-0.5 + fr * (1.0 - 0.5 * fr))
+    w1 = 1.0 + fr * fr * (-2.5 + 1.5 * fr)
+    w2 = fr * (0.5 + fr * (2.0 - 1.5 * fr))
+    w3 = fr * fr * (0.5 * fr - 0.5)
+    return w0, w1, w2, w3
+
+
+def onehot_matrix(t0, length: int):
+    """(..., N, length) float32 one-hot rows: row i is e_{t0[i]}."""
+    col = torch.arange(length, dtype=t0.dtype, device=t0.device)
+    return (col == t0[..., None]).to(torch.float32)
+
+
+def cubic_onehot_matrix(t0, fr, length: int):
+    """Dense form of the 4-tap cubic read: W[..., i, t0[i] + k] =
+    w_k(fr[i]) (``cubic_tap_weights``).  t0: (..., N) int column of the
+    first tap; fr: (..., N); positions must be in range (no wrap lanes).
+    Returns (..., N, length) float32."""
+    col = torch.arange(length, dtype=t0.dtype, device=t0.device)
+    w0, w1, w2, w3 = cubic_tap_weights(fr)
+    t = t0[..., None]
+    return (w0[..., None] * (col == t) + w1[..., None] * (col == t + 1)
+            + w2[..., None] * (col == t + 2) + w3[..., None] * (col == t + 3))
 
 
 def fractional_read_cubic(hist, x, ago):
@@ -289,3 +354,17 @@ def fractional_read_resample2(hist, x, ago1, ago2):
     from aefs_tpu_torch.ops.kernels.resample import octaver_taps
 
     return octaver_taps(hist, x, ago1, ago2)
+
+
+def fractional_read_resample(hist, x, ago, tile=None, window=None):
+    """The read of ``fractional_read_cubic`` through kernel K3
+    (ops/kernels/resample.py), one launch for all rows: hist (S,) or
+    (R, S), x and ago (N,) or (R, N).  ``tile`` and ``window`` size the
+    reference's TPU tiles; they are accepted and ignored (K3 reads any
+    block and history length)."""
+    from aefs_tpu_torch.ops.kernels.resample import fractional_read
+
+    if hist.ndim == 1:
+        return fractional_read(hist[None].contiguous(), x[None].contiguous(),
+                               ago[None].contiguous())[0]
+    return fractional_read(hist.contiguous(), x.contiguous(), ago.contiguous())

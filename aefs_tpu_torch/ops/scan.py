@@ -8,7 +8,8 @@ Every IIR recurrence of the effects is solved for a whole block at once:
 - lag-L  y[n] = b[n] + a*y[n-L]  -> ``lag_affine_scan`` (residue-class rows,
   one Toeplitz matmul per row chunk plus a carry scan);
 - second order (biquad)  -> ``linrec2`` (2x2 companion Hillis) and, for
-  long signals, ``linrec2_file_fir`` (chunked Toeplitz matmul).
+  long signals, ``linrec2_file_fir`` (chunked Toeplitz matmul);
+- per-sample 2x2 (the wah's swept filter)  -> ``mat2_affine_hillis``.
 
 PyTorch has no public associative scan, so every scan here is a
 Hillis-Steele over the last axis: log2(N) levels of pad + slice + FMA.
@@ -219,6 +220,21 @@ def _mat2_hillis(cp, cq, cr, cs, cu, cv):
         )
         k *= 2
     return cp, cq, cr, cs, cu, cv
+
+
+def mat2_affine_hillis(mp, mq, mr, ms, bu, bv, init1, init2):
+    """Solve s[n] = M[n] @ s[n-1] + b[n] over the last axis with per-sample
+    matrices M[n] = [[mp, mq], [mr, ms]][n], b[n] = [bu, bv][n] and
+    s[-1] = [init1, init2]: the time-varying form of ``linrec2`` (the
+    wah's swept state-variable filter).  The coefficients broadcast to
+    ``bu`` (..., N); init1/init2 to one last-axis slice.  Returns the two
+    state components (s1, s2), each (..., N)."""
+    shp = bu.shape
+    cp, cq, cr, cs, cu, cv = _mat2_hillis(
+        *(torch.broadcast_to(_f32(t, bu), shp) for t in (mp, mq, mr, ms)),
+        bu, torch.broadcast_to(_f32(bv, bu), shp))
+    i1, i2 = _f32(init1, bu), _f32(init2, bu)
+    return cp * i1 + cq * i2 + cu, cr * i1 + cs * i2 + cv
 
 
 def linrec2(v, a1, a2, y1, y2):

@@ -11,15 +11,24 @@ Drives the port's main path (aefs_tpu_torch) end to end on the card:
 4. K2 (whole-file reverb comb sums) against its plain version on the card,
    at the flagship reverb's lags over the demo file's length, with the
    baked-damping FIR and the traced-damping scan;
-5. file mode: ``process_offline`` of the flagship chain and the "Rain Delay"
-   preset on music/rain-demo.wav, against the same render on the CPU;
-6. streaming: ``AudioEngine(device="cuda")`` with the flagship chain, 375
-   blocks of 256 samples of the demo's mono mix, against the CPU engine.
+5. K3 (one stream's tap read, the chorus's tap) against its plain version,
+   bit for bit, at 2 x 256 (streaming) and 2 x 892,800 (the demo file);
+6. K4 (the comb bank with every chunk's y and damped) through its entry
+   ``ringbuf.comb_bank_file_chunks`` at the flagship reverb's lags over the
+   demo's length, against its plain version;
+7. file mode: ``process_offline`` of the flagship chain, the "Rain Delay"
+   preset and the five modulation presets ("Lush Chorus", "Jet Flanger",
+   "Psychedelic Sweep", "Funky Talk", "8-Bit Arcade") on
+   music/rain-demo.wav, each against the same render on the CPU;
+8. streaming: ``AudioEngine(device="cuda")`` with the flagship chain and
+   with "Lush Chorus", 375 blocks of 256 samples of the demo's mono mix
+   each, against the CPU engine.
 
-Kernel launch counters are zeroed just before phases 5-6 (the main path)
-and read just after.  Any failure raises (non-zero exit).  The last two
-lines of standard output are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.  Imports no JAX.
+Every path of phases 6-8 runs from zeroed kernel launch counters, read
+just after it; each fails if a kernel it runs was not launched.  Any
+failure raises (non-zero exit).  The last two lines of standard output are
+the kernels' JSON record and ``{"ok": true, "device": {...}}``.  Imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -40,8 +49,11 @@ from aefs_tpu_torch.engine.engine import AudioEngine, process_offline
 from aefs_tpu_torch.engine.wavio import read_wav_file
 from aefs_tpu_torch.models.reverb import Reverb
 from aefs_tpu_torch.ops import kernels
-from aefs_tpu_torch.ops.kernels.comb import comb_sums, comb_sums_plain
-from aefs_tpu_torch.ops.kernels.resample import octaver_taps, octaver_taps_plain
+from aefs_tpu_torch.ops.kernels.comb import (
+    comb_chunks, comb_chunks_plain, comb_sums, comb_sums_plain)
+from aefs_tpu_torch.ops.kernels.resample import (
+    fractional_read, fractional_read_plain, octaver_taps, octaver_taps_plain)
+from aefs_tpu_torch.ops.ringbuf import comb_bank_file_chunks, comb_chunk_size
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DEMO = ROOT / "music" / "rain-demo.wav"
@@ -51,7 +63,14 @@ STREAM_BLOCKS = 375  # 2 s at 48 kHz
 BUDGET_MS = 1000.0 * BLOCK / FS  # 5.33 ms per block
 K1_TOL = 2e-6
 K2_SUM_TOL, K2_TAIL_TOL = 1e-5, 1e-4
+K4_Y_TOL, K4_DAMPED_TOL = K2_SUM_TOL, K2_TAIL_TOL
 DBFS_TOL = -90.0
+MODULATION_PRESETS = ("Lush Chorus", "Jet Flanger", "Psychedelic Sweep", "Funky Talk",
+                      "8-Bit Arcade")
+# Every wrapper's launch counter, by the name the kernels' record uses.
+COUNTERS = {"octaver_taps": octaver_taps, "comb_sums": comb_sums,
+            "fractional_read": fractional_read, "comb_chunks": comb_chunks}
+LAUNCHES = {k: 0 for k in COUNTERS}  # summed over the paths of phases 6-8
 
 
 def phase(name, **fields):
@@ -75,6 +94,24 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def count_launches(run, need=(), per_block=None):
+    """Run one path from zeroed launch counters and read them just after.
+    ``need``: kernels the path must launch (at least once, or exactly
+    ``per_block`` times).  Adds the counts to LAUNCHES."""
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    result = run()
+    counts = {k: fn.launches for k, fn in COUNTERS.items()}
+    for k in need:
+        want_ok = counts[k] >= 1 if per_block is None else counts[k] == per_block
+        if not want_ok:
+            raise AssertionError(f"{k} launched {counts[k]} times on this path "
+                                 f"(want {'>= 1' if per_block is None else per_block})")
+    for k, v in counts.items():
+        LAUNCHES[k] += v
+    return result, counts
 
 
 def probe():
@@ -141,8 +178,6 @@ def check_k2(dev, demo):
     rev = Reverb(FS, 4096, file_mode=True, file_damp=0.05)
     lags = tuple(rev.comb_lags[0] + rev.comb_lags[1])
     side_of = (0,) * rev.n_combs + (1,) * rev.n_combs
-    from aefs_tpu_torch.ops.ringbuf import comb_chunk_size
-
     c = comb_chunk_size(lags)
     x = torch.from_numpy(np.ascontiguousarray(demo.T)).to(dev)  # (2, N) real audio
     g = torch.pow(10.0, -3.0 * (torch.tensor(lags, dtype=torch.float32) / FS) / 2.1).to(dev)
@@ -169,56 +204,116 @@ def check_k2(dev, demo):
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
-def file_mode(name, cfg, audio, fs):
-    before = comb_sums.launches
+def check_k3(dev, n_file):
+    """K3 at the chorus's geometry (history 2408, two channels) with
+    chorus-law distances: 2 x 256 (a streaming block) and 2 x n_file (the
+    demo file), bit for bit against the plain gather."""
+    rng = np.random.default_rng(3)
+    res = {}
+    for n, reps, plain_reps in ((BLOCK, 2000, 200), (n_file, 20, 5)):
+        hist = torch.from_numpy((0.3 * rng.standard_normal((2, 2408))).astype(np.float32)).to(dev)
+        x = torch.from_numpy((0.3 * rng.standard_normal((2, n))).astype(np.float32)).to(dev)
+        ph = 0.13 + np.arange(n) * (0.6 / FS) + 0.25 * np.arange(2)[:, None]
+        ago = torch.from_numpy(np.clip((14.0 + 4.0 * np.sin(2 * np.pi * ph)) * 48.0, 2.0, 2406.0)
+                               .astype(np.float32)).to(dev)
+        got = fractional_read(hist, x, ago)
+        ref = fractional_read_plain(hist, x, ago)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K3 2x{n}: not bitwise equal to plain (max abs {err})")
+        ms = cuda_ms(lambda: fractional_read(hist, x, ago), reps)
+        plain_ms = cuda_ms(lambda: fractional_read_plain(hist, x, ago), plain_reps)
+        res[n] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        phase("k3_fractional_read", shape=[2, n], hist=2408, bitwise=True, **res[n])
+    return res[BLOCK]
+
+
+def check_k4(dev, demo):
+    """K4 at the flagship reverb's 8 lags and its two sides over the demo
+    (traced damping h = 0.25, the scan), through the entry
+    ``ringbuf.comb_bank_file_chunks`` from a zeroed counter, against plain."""
+    rev = Reverb(FS, 4096, file_mode=True, file_damp=0.05)
+    lags = tuple(rev.comb_lags[0] + rev.comb_lags[1])
+    side_of = (0,) * rev.n_combs + (1,) * rev.n_combs
+    x = torch.from_numpy(np.ascontiguousarray(demo.T)).to(dev)
+    g = torch.pow(10.0, -3.0 * (torch.tensor(lags, dtype=torch.float32) / FS) / 2.1).to(dev)
+    h = torch.tensor(0.25, dtype=torch.float32, device=dev)
+    (y, damped, c), counts = count_launches(
+        lambda: comb_bank_file_chunks(x, lags, g, h, side_of=side_of), need=("comb_chunks",))
+    y_ref, d_ref = comb_chunks_plain(x, g, h, lags, c, side_of)
+    torch.cuda.synchronize()
+    e_y = float((y - y_ref).abs().max())
+    e_d = float((damped - d_ref).abs().max())
+    if e_y >= K4_Y_TOL or e_d >= K4_DAMPED_TOL:
+        raise AssertionError(f"K4: y {e_y}, damped {e_d}")
+    if not (torch.isfinite(y).all() and torch.isfinite(damped).all()):
+        raise AssertionError("K4 output not finite")
+    ms = cuda_ms(lambda: comb_chunks(x, g, h, lags, c, side_of), 5)
+    plain_ms = cuda_ms(lambda: comb_chunks_plain(x, g, h, lags, c, side_of), 3)
+    phase("k4_comb_chunks", n=x.shape[1], chunk=c, chunks=y.shape[0], lags=list(lags),
+          entry_launches=counts["comb_chunks"], max_abs_err_y=e_y, max_abs_err_damped=e_d,
+          ms=ms, plain_ms=plain_ms)
+    return {"max_abs_err": max(e_y, e_d), "ms": ms, "plain_ms": plain_ms}
+
+
+def file_mode(name, cfg, audio, fs, need=()):
+    """One file render path (cold, then warm from zeroed counters) on the
+    card, held against the CPU port's render."""
     t0 = time.perf_counter()
     _, cold = process_offline(cfg, audio, fs, device="cuda")
     t_cold = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    _, out = process_offline(cfg, audio, fs, device="cuda")
-    t_warm = time.perf_counter() - t0
-    launched = comb_sums.launches - before
-    if launched < 1:
-        raise AssertionError(f"file mode {name}: K2 was not launched")
+
+    def warm():
+        t1 = time.perf_counter()
+        out = process_offline(cfg, audio, fs, device="cuda")[1]
+        return out, time.perf_counter() - t1
+
+    (out, t_warm), counts = count_launches(warm, need)
     if out.shape != (audio.shape[0], 2) or not np.all(np.isfinite(out)):
         raise AssertionError(f"file mode {name}: bad output {out.shape}")
     if not np.array_equal(out, cold):
         raise AssertionError(f"file mode {name}: two renders on the card differ")
+    t0 = time.perf_counter()
     _, ref = process_offline(cfg, audio, fs, device="cpu")
+    t_cpu = time.perf_counter() - t0
     err = err_dbfs(out, ref)
     if not err <= DBFS_TOL:
         raise AssertionError(f"file mode {name}: card vs CPU {err:.1f} dBFS > {DBFS_TOL}")
     secs = audio.shape[0] / fs
     phase("file_mode", chain=name, frames=audio.shape[0], audio_s=secs,
-          wall_s_cold=t_cold, wall_s=t_warm, realtime_x=secs / t_warm,
-          k2_launches=launched, vs_cpu_dbfs=err, peak=float(np.max(np.abs(out))))
+          wall_s_cold=t_cold, wall_s=t_warm, realtime_x=secs / t_warm, cpu_port_wall_s=t_cpu,
+          launches=counts, vs_cpu_dbfs=err, peak=float(np.max(np.abs(out))))
 
 
-def streaming(mono):
+def streaming(name, cfg, mono, kernel):
+    """375 blocks through the card's engine from zeroed counters (``kernel``
+    launched exactly once per block), against the CPU engine."""
     blocks = [mono[i * BLOCK:(i + 1) * BLOCK] for i in range(STREAM_BLOCKS)]
     eng = AudioEngine(device="cuda")
-    eng.build_chain(FLAGSHIP)
-    before = octaver_taps.launches
-    lat, outs = [], []
-    for blk in blocks:
-        t0 = time.perf_counter()
-        outs.append(eng.process_stream_block(blk))  # returns host audio: synchronized
-        lat.append(1000.0 * (time.perf_counter() - t0))
-    launched = octaver_taps.launches - before
-    if launched != STREAM_BLOCKS:
-        raise AssertionError(f"streaming: K1 launched {launched} times, want {STREAM_BLOCKS}")
+    eng.build_chain(cfg)
+
+    def run():
+        lat, outs = [], []
+        for blk in blocks:
+            t0 = time.perf_counter()
+            outs.append(eng.process_stream_block(blk))  # returns host audio: synchronized
+            lat.append(1000.0 * (time.perf_counter() - t0))
+        return lat, outs
+
+    (lat, outs), counts = count_launches(run, need=(kernel,), per_block=STREAM_BLOCKS)
     got = np.concatenate(outs)
     if got.shape != (STREAM_BLOCKS * BLOCK, 2) or not np.all(np.isfinite(got)):
-        raise AssertionError(f"streaming: bad output {got.shape}")
+        raise AssertionError(f"streaming {name}: bad output {got.shape}")
     ref_eng = AudioEngine(device="cpu")
-    ref_eng.build_chain(FLAGSHIP)
+    ref_eng.build_chain(cfg)
     ref = np.concatenate([ref_eng.process_stream_block(b) for b in blocks])
     err = err_dbfs(got, ref)
     if not err <= DBFS_TOL:
-        raise AssertionError(f"streaming: card vs CPU {err:.1f} dBFS > {DBFS_TOL}")
+        raise AssertionError(f"streaming {name}: card vs CPU {err:.1f} dBFS > {DBFS_TOL}")
     lat_sorted = sorted(lat)
     p99 = lat_sorted[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))]
-    phase("streaming", blocks=STREAM_BLOCKS, block=BLOCK, k1_launches=launched,
+    phase("streaming", chain=name, blocks=STREAM_BLOCKS, block=BLOCK, launches=counts,
           vs_cpu_dbfs=err, median_ms=statistics.median(lat), p99_ms=p99,
           max_ms=max(lat), first_ms=lat[0], budget_ms=BUDGET_MS,
           within_budget_share=sum(t <= BUDGET_MS for t in lat) / len(lat))
@@ -233,23 +328,30 @@ def main():
         raise AssertionError(f"unexpected demo file: {demo.shape} @ {fs}")
     k1 = check_k1(dev)
     k2 = check_k2(dev, demo)
+    k3 = check_k3(dev, demo.shape[0])
+    k4 = check_k4(dev, demo)  # K4's own path: its entry, from a zeroed counter
 
-    # The main path, from zeroed launch counters.
-    octaver_taps.launches = 0
-    comb_sums.launches = 0
-    file_mode("flagship", FLAGSHIP, demo, fs)
-    file_mode("Rain Delay", DEFAULT_PRESETS["Rain Delay"], demo, fs)
-    streaming(demo.mean(axis=1, keepdims=True).astype(np.float32))
-    k1_launches, k2_launches = octaver_taps.launches, comb_sums.launches
-    for kname, n in (("octaver_taps", k1_launches), ("comb_sums", k2_launches)):
-        if n < 1:
-            raise AssertionError(f"{kname} was not launched on the main path")
+    # The main paths, each from zeroed launch counters.
+    file_mode("flagship", FLAGSHIP, demo, fs, need=("comb_sums",))
+    file_mode("Rain Delay", DEFAULT_PRESETS["Rain Delay"], demo, fs, need=("comb_sums",))
+    for preset in MODULATION_PRESETS:
+        need = ("fractional_read", "comb_sums") if preset == "Lush Chorus" else ()
+        file_mode(preset, DEFAULT_PRESETS[preset], demo, fs, need=need)
+    mono = demo.mean(axis=1, keepdims=True).astype(np.float32)
+    streaming("flagship", FLAGSHIP, mono, "octaver_taps")
+    streaming("Lush Chorus", DEFAULT_PRESETS["Lush Chorus"], mono, "fractional_read")
 
     print(json.dumps({"kernels": [
         {"name": "octaver_taps", "route": "cuda", "source": "aefs_tpu_torch/csrc/resample.cu",
-         "replaces": "aefs_tpu/ops/pallas/resample.py:133", "launches": k1_launches, **k1},
+         "replaces": "aefs_tpu/ops/pallas/resample.py:133", "launches": LAUNCHES["octaver_taps"],
+         **k1},
         {"name": "comb_sums", "route": "cuda", "source": "aefs_tpu_torch/csrc/comb.cu",
-         "replaces": "aefs_tpu/ops/pallas/comb.py:145", "launches": k2_launches, **k2},
+         "replaces": "aefs_tpu/ops/pallas/comb.py:145", "launches": LAUNCHES["comb_sums"], **k2},
+        {"name": "fractional_read", "route": "cuda", "source": "aefs_tpu_torch/csrc/resample.cu",
+         "replaces": "aefs_tpu/ops/pallas/resample.py:64",
+         "launches": LAUNCHES["fractional_read"], **k3},
+        {"name": "comb_chunks", "route": "cuda", "source": "aefs_tpu_torch/csrc/comb.cu",
+         "replaces": "aefs_tpu/ops/pallas/comb.py:62", "launches": LAUNCHES["comb_chunks"], **k4},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}),
           flush=True)

@@ -1,9 +1,10 @@
 """Where the PyTorch port's time goes on one CUDA card.
 
-    python3 scripts/profile_port.py [--blocks 40] [--out chiprun_out/profile_port.json]
+    python3 scripts/profile_port.py [--preset NAME] [--blocks 40] [--out OUT.json]
 
-Profiles the flagship chain (``__graft_entry__.FLAGSHIP``) of
-``aefs_tpu_torch`` two ways, on the card, under ``torch.profiler``:
+Profiles the flagship chain (``__graft_entry__.FLAGSHIP``), or the factory
+preset ``--preset`` names, of ``aefs_tpu_torch`` two ways, on the card,
+under ``torch.profiler``:
 
 - streaming: ``AudioEngine.process_stream_block`` on 256-sample blocks of
   the demo's mono mix (``--blocks`` profiled blocks after a warm-up);
@@ -52,6 +53,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from __graft_entry__ import FLAGSHIP  # noqa: E402
+from aefs_tpu_torch.core.config import DEFAULT_PRESETS  # noqa: E402
 from aefs_tpu_torch.engine.engine import AudioEngine, process_offline  # noqa: E402
 from aefs_tpu_torch.engine.wavio import read_wav_file  # noqa: E402
 from aefs_tpu_torch.models import EFFECT_REGISTRY  # noqa: E402
@@ -155,10 +157,10 @@ def _profiler():
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
-def streaming(mono, n_blocks):
+def streaming(cfg, mono, n_blocks):
     blocks = [mono[i * BLOCK:(i + 1) * BLOCK] for i in range(3 * n_blocks)]
     eng = AudioEngine(device="cuda")
-    eng.build_chain(FLAGSHIP)
+    eng.build_chain(cfg)
     lat = []
     for blk in blocks[:2 * n_blocks]:  # warm-up, then unprofiled timing
         t0 = time.perf_counter()
@@ -173,20 +175,22 @@ def streaming(mono, n_blocks):
     return summarize(prof, n_blocks, wall)
 
 
-def file_mode(demo, fs):
-    process_offline(FLAGSHIP, demo, fs, device="cuda")  # warm: cuBLAS, allocator
+def file_mode(cfg, demo, fs):
+    process_offline(cfg, demo, fs, device="cuda")  # warm: cuBLAS, allocator
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    process_offline(FLAGSHIP, demo, fs, device="cuda")
+    process_offline(cfg, demo, fs, device="cuda")
     wall = 1000.0 * (time.perf_counter() - t0)
     with effect_spans(), _profiler() as prof:
-        process_offline(FLAGSHIP, demo, fs, device="cuda")
+        process_offline(cfg, demo, fs, device="cuda")
         torch.cuda.synchronize()
     return summarize(prof, 1, wall)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--preset", choices=sorted(DEFAULT_PRESETS),
+                    help="factory preset to profile (default: the flagship chain)")
     ap.add_argument("--blocks", type=int, default=40, help="profiled streaming blocks")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile_port.json"))
     args = ap.parse_args(argv)
@@ -198,10 +202,12 @@ def main(argv=None):
     ).stdout.strip().splitlines()[0]
     demo, fs = read_wav_file(str(ROOT / "music" / "rain-demo.wav"))
     mono = demo.mean(axis=1, keepdims=True).astype(np.float32)
+    cfg = DEFAULT_PRESETS[args.preset] if args.preset else FLAGSHIP
     result = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-        "streaming": streaming(mono, args.blocks),
-        "file_mode": file_mode(demo, fs),
+        "chain": args.preset or "flagship",
+        "streaming": streaming(cfg, mono, args.blocks),
+        "file_mode": file_mode(cfg, demo, fs),
     }
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

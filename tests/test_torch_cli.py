@@ -41,6 +41,25 @@ def test_cli_rain_delay_matches_jax_render(tmp_path):
     assert lsb <= 1.0 + 1e-9, lsb
 
 
+def test_cli_lush_chorus_matches_jax_render(tmp_path):
+    """A modulation preset through the CLI: chorus (read through K3's entry)
+    into the reverb, against the JAX render to one 16-bit step."""
+    x = tones(FS // 2, fs=FS)
+    src = tmp_path / "in.wav"
+    jax_write(str(src), x, FS)
+    out = tmp_path / "out.wav"
+    assert cli.main([str(src), str(out), "--preset", "Lush Chorus", "--device", "cpu"]) == 0
+
+    audio, fs = jax_read(str(src))
+    _, ref = jax_offline(DEFAULT_PRESETS["Lush Chorus"], audio, fs)
+    jax_write(str(tmp_path / "ref.wav"), ref, fs)
+    got, _ = read_wav_file(str(out))
+    want, _ = read_wav_file(str(tmp_path / "ref.wav"))
+    assert got.shape == want.shape == (FS // 2, 2)
+    lsb = np.max(np.abs(got.astype(np.float64) - want.astype(np.float64))) * 32768.0
+    assert lsb <= 1.0 + 1e-9, lsb
+
+
 def test_cli_list_presets(capsys):
     assert cli.main(["--list-presets"]) == 0
     assert "Rain Delay: delay -> reverb" in capsys.readouterr().out

@@ -70,3 +70,78 @@ def test_plain_sums_on_cpu_do_not_count_launches():
     before = comb_sums.launches
     comb_sums(x, torch.full((8,), 0.5), torch.tensor(0.3), LAGS, 1408, SIDE_OF, 2)
     assert comb_sums.launches == before
+
+
+# --- Kernel K4: the comb bank with every chunk's y and damped ---------------
+
+from aefs_tpu.ops.ringbuf import comb_bank_file as jax_comb_file
+from aefs_tpu.ops.ringbuf import comb_bank_file_chunks as jax_chunks
+from aefs_tpu_torch.ops.kernels.comb import comb_chunks, comb_chunks_plain
+from aefs_tpu_torch.ops.ringbuf import comb_bank_file, comb_bank_file_chunks, comb_chunk_size
+
+
+def _k4_inputs(rows, n, seed):
+    rng = np.random.default_rng(seed)
+    x = (0.3 * rng.standard_normal((rows, n))).astype(np.float32)
+    return x, np.linspace(0.5, 0.9, 8).astype(np.float32)
+
+
+@pytest.mark.parametrize("use_pallas", [False, "interpret"])
+@pytest.mark.parametrize("sides", ["identity", "reverb"])
+def test_chunks_match_jax(use_pallas, sides):
+    """``comb_bank_file_chunks`` against the JAX package's (its XLA solve and
+    its Pallas kernel in interpret mode), n = 20000 (15 chunks of 1408), at
+    the JAX kernel tests' bar: max abs 1e-5 on y and on damped."""
+    side_of = None if sides == "identity" else SIDE_OF
+    x, g = _k4_inputs(8 if side_of is None else 2, 20000, seed=5)
+    h = 0.3
+    y, d, c = comb_bank_file_chunks(torch.from_numpy(x), LAGS, torch.from_numpy(g),
+                                    torch.tensor(h), side_of=side_of)
+    y_ref, d_ref, c_ref = jax_chunks(jnp.asarray(x), LAGS, jnp.asarray(g), jnp.float32(h),
+                                     use_pallas=use_pallas, side_of=side_of)
+    assert c == c_ref == 1408 and y.shape == y_ref.shape == (15, 8, 1408)
+    assert float(np.max(np.abs(y.numpy() - np.asarray(y_ref)))) < 1e-5
+    assert float(np.max(np.abs(d.numpy() - np.asarray(d_ref)))) < 1e-5
+
+
+@pytest.mark.parametrize("chunk", [None, 1411])
+def test_comb_bank_file_matches_jax(chunk):
+    """The flattened (B, N) form, with the default chunk rule and an
+    explicit chunk."""
+    x, g = _k4_inputs(8, 6000, seed=6)
+    y, d = comb_bank_file(torch.from_numpy(x), LAGS, torch.from_numpy(g),
+                          torch.tensor(0.6), chunk=chunk)
+    y_ref, d_ref = jax_comb_file(jnp.asarray(x), LAGS, jnp.asarray(g), jnp.float32(0.6),
+                                 chunk=chunk, use_pallas=False)
+    assert y.shape == d.shape == (8, 6000)
+    assert float(np.max(np.abs(y.numpy() - np.asarray(y_ref)))) < 1e-5
+    assert float(np.max(np.abs(d.numpy() - np.asarray(d_ref)))) < 1e-5
+
+
+def test_sums_plain_is_the_chunk_loop_reduced():
+    """K2's plain version is K4's loop plus the side sums and the tail."""
+    x, g = _k4_inputs(2, 9000, seed=7)
+    xt, gt, ht = torch.from_numpy(x), torch.from_numpy(g), torch.tensor(0.4)
+    y, d = comb_chunks_plain(xt, gt, ht, LAGS, 1408, SIDE_OF)
+    ysum, d_tail = comb_sums(xt, gt, ht, LAGS, 1408, SIDE_OF, 2)
+    assert torch.equal(ysum[0], y[:, 0] + y[:, 1] + y[:, 2] + y[:, 3])
+    assert torch.equal(ysum[1], y[:, 4] + y[:, 5] + y[:, 6] + y[:, 7])
+    assert torch.equal(d_tail, d[-3:])
+
+
+def test_chunk_rule_matches_jax():
+    assert comb_chunk_size(LAGS) == 1408
+    assert comb_chunk_size(LAGS, 1411) == 1411
+    for bad in (1000, 2098):
+        with pytest.raises(ValueError, match="violate"):
+            comb_chunk_size(LAGS, bad)
+        with pytest.raises(ValueError, match="violate"):
+            jax_chunks(jnp.zeros((8, 3000)), LAGS, jnp.ones(8), jnp.float32(0.3),
+                       chunk=bad, use_pallas=False)
+
+
+def test_chunks_on_cpu_do_not_count_launches():
+    before = comb_chunks.launches
+    comb_chunks(torch.zeros((8, 3000)), torch.full((8,), 0.5), torch.tensor(0.3),
+                LAGS, 1408, tuple(range(8)))
+    assert comb_chunks.launches == before

@@ -120,3 +120,112 @@ def test_comb_sums_kernel_matches_plain(dev, n, h_static, h):
     assert ysum.shape == y_ref.shape and d_tail.shape == (3, 8, 1408)
     assert float((ysum - y_ref).abs().max()) < 1e-5
     assert float((d_tail - d_ref).abs().max()) < 1e-4
+
+
+def _chorus_rows(dev, n, seed):
+    """Two rows at the chorus's geometry (history 2408) with chorus-law
+    distances, plus two rows whose distances cross the ring boundary."""
+    rng = np.random.default_rng(seed)
+    hist = (0.3 * rng.standard_normal((2, 2408))).astype(np.float32)
+    x = (0.3 * rng.standard_normal((2, n))).astype(np.float32)
+    ph = 0.13 + np.arange(n) * (0.6 / 48000.0) + 0.25 * np.arange(2)[:, None]
+    ago = np.clip((14.0 + 4.0 * np.sin(2 * np.pi * ph)) * 48.0, 2.0, 2406.0).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (hist, x, ago)]
+
+
+@pytest.mark.parametrize("n", [256, 892800])
+def test_fractional_read_kernel_matches_plain_bitwise(dev, n):
+    """K3 against its plain version, bit for bit, at the chorus's streaming
+    block and at the demo file's length (2 x 892,800 outputs)."""
+    from aefs_tpu_torch.ops.kernels.resample import fractional_read, fractional_read_plain
+
+    args = _chorus_rows(dev, n, seed=n)
+    before = fractional_read.launches
+    got = fractional_read(*args)
+    torch.cuda.synchronize()
+    assert fractional_read.launches == before + 1
+    assert torch.equal(got, fractional_read_plain(*args))
+
+
+def test_fractional_read_kernel_wrap_lanes_bitwise(dev):
+    from aefs_tpu_torch.ops.kernels.resample import fractional_read, fractional_read_plain
+
+    size, n = 1920, 256
+    rng = np.random.default_rng(10)
+    hist = torch.from_numpy((0.3 * rng.standard_normal((2, size))).astype(np.float32)).to(dev)
+    x = torch.from_numpy((0.3 * rng.standard_normal((2, n))).astype(np.float32)).to(dev)
+    edge = np.concatenate([np.linspace(0.0, 2.5, n // 2),
+                           np.linspace(size - 2.5, size - 1e-3, n // 2)]).astype(np.float32)
+    ago = torch.from_numpy(np.stack([edge, edge[::-1].copy()])).to(dev)
+    assert torch.equal(fractional_read(hist, x, ago), fractional_read_plain(hist, x, ago))
+
+
+def test_fractional_read_rejects_bad_operands(dev):
+    from aefs_tpu_torch.ops.kernels.resample import fractional_read
+
+    hist, x, ago = _chorus_rows(dev, 256, seed=1)
+    with pytest.raises(ValueError):
+        fractional_read(hist, x, ago[:, :128])
+    with pytest.raises(ValueError):
+        fractional_read(hist, x.T.contiguous().T, ago)  # not contiguous
+    with pytest.raises(ValueError):
+        fractional_read(hist.double(), x, ago)
+
+
+def test_chorus_streaming_step_launches_k3_once_per_block(dev):
+    """The chorus reads through K3 on the card: one launch per block (both
+    channels), never the plain gather, and renders what the CPU renders."""
+    from aefs_tpu_torch.core.chain import build_chain
+    from aefs_tpu_torch.core.config import DEFAULT_PRESETS
+    from aefs_tpu_torch.ops.kernels.resample import fractional_read
+
+    cfg = DEFAULT_PRESETS["Lush Chorus"]
+    x = (0.25 * np.random.default_rng(11).standard_normal((12 * 256, 1))).astype(np.float32)
+    outs, launched = {}, {}
+    for d in ("cuda", "cpu"):
+        chain, state, tmap = build_chain(cfg, 48000, 256, channels_in=1, device=d)
+        before = fractional_read.launches
+        _, outs[d] = chain.process_array(state, chain.targets(tmap), x)
+        launched[d] = fractional_read.launches - before
+    assert launched == {"cuda": 12, "cpu": 0}
+    err = float(np.max(np.abs(outs["cuda"].astype(np.float64) - outs["cpu"])))
+    assert err == 0.0 or 20.0 * np.log10(err) <= -90.0, err
+
+
+@pytest.mark.parametrize("n", [900, 20000, 892800])
+@pytest.mark.parametrize("sides", ["identity", "reverb"])
+def test_comb_chunks_kernel_matches_plain(dev, n, sides):
+    """K4 against its plain version at K2's tolerances (1e-5 on y, 1e-4 on
+    damped), through its entry ``ringbuf.comb_bank_file_chunks``."""
+    from aefs_tpu_torch.ops.kernels.comb import comb_chunks, comb_chunks_plain
+    from aefs_tpu_torch.ops.ringbuf import comb_bank_file_chunks
+
+    lags = (1425, 1780, 1972, 2097, 1411, 1766, 1958, 2083)
+    side_of = tuple(range(8)) if sides == "identity" else (0, 0, 0, 0, 1, 1, 1, 1)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((0.3 * rng.standard_normal((max(side_of) + 1, n)))
+                         .astype(np.float32)).to(dev)
+    g = torch.from_numpy(np.linspace(0.5, 0.9, 8).astype(np.float32)).to(dev)
+    h = torch.tensor(0.3, device=dev)
+    before = comb_chunks.launches
+    y, d, c = comb_bank_file_chunks(x, lags, g, h, side_of=side_of)
+    torch.cuda.synchronize()
+    assert comb_chunks.launches == before + 1 and c == 1408
+    y_ref, d_ref = comb_chunks_plain(x, g, h, lags, c, side_of)
+    assert y.shape == y_ref.shape == (-(-n // c), 8, c)
+    assert float((y - y_ref).abs().max()) < 1e-5
+    assert float((d - d_ref).abs().max()) < 1e-4
+
+
+def test_u32_accumulator_on_the_card(dev):
+    """The ring mod's uint32 accumulator advances on the card exactly as on
+    the CPU, across a wrap."""
+    from aefs_tpu_torch.models.ringmod import advance_u32, phase_ramp_cycles, phase_step_u32
+
+    outs = {}
+    for d in ("cuda", "cpu"):
+        acc = torch.tensor(2**32 - 12345, dtype=torch.uint32).to(d)
+        num = phase_step_u32(torch.tensor(4321.0, device=d), 48000)
+        outs[d] = (advance_u32(acc, num, 256).cpu(), phase_ramp_cycles(acc, num, 4096).cpu())
+    assert torch.equal(outs["cuda"][0], outs["cpu"][0])
+    assert torch.equal(outs["cuda"][1], outs["cpu"][1])

@@ -74,3 +74,75 @@ def test_plain_taps_on_cpu_do_not_count_launches():
     before = octaver_taps.launches
     octaver_taps(*(torch.from_numpy(a) for a in (hist, x, ago1, ago2)))
     assert octaver_taps.launches == before
+
+
+# --- Kernel K3: one stream's tap read per row (the chorus's tap) -----------
+
+from aefs_tpu.ops.ringbuf import fractional_read_resample as jax_resample
+from aefs_tpu_torch.ops.kernels.resample import fractional_read, fractional_read_plain
+from aefs_tpu_torch.ops.ringbuf import fractional_read_resample
+
+CHORUS_HIST = 2408  # int((40 + 10) * 48000 / 1000) + 8
+
+
+def _chorus_rows(n, seed, rate_hz=0.6, base_ms=14.0, depth_ms=4.0, spread=0.25):
+    """Two channels' history, block and chorus-law distances (LFO sweep,
+    right channel offset by ``spread`` cycles), clipped as the chorus clips."""
+    rng = np.random.default_rng(seed)
+    hist = (0.3 * rng.standard_normal((2, CHORUS_HIST))).astype(np.float32)
+    x = (0.3 * rng.standard_normal((2, n))).astype(np.float32)
+    ph = 0.13 + np.arange(n) * (rate_hz / 48000.0)
+    ph = ph[None, :] + spread * np.arange(2)[:, None]
+    ago = (base_ms + depth_ms * np.sin(2 * np.pi * ph)) * 48.0
+    return hist, x, np.clip(ago, 2.0, CHORUS_HIST - 2).astype(np.float32)
+
+
+def _wrap_rows(n, seed):
+    """Two rows of octaver-like phase ramps on a 1920 ring that cross the
+    ring boundary (wrap lanes) inside the block."""
+    rows = [_inputs(n, s, seed=seed + i) for i, s in enumerate((-0.94, 0.9))]
+    hist, x, ago = (np.stack([r[k] for r in rows]) for k in (0, 1, 2))
+    ca = np.ceil(ago)
+    assert np.any((ca <= 1) | (ca >= SIZE - 1))
+    return hist, x, ago
+
+
+K3_CASES = [("chorus", 256), ("chorus", 1024), ("wrap", 256), ("wrap", 1024)]
+
+
+@pytest.mark.parametrize("geom,n", K3_CASES)
+def test_fractional_read_matches_jax_resample(geom, n):
+    """Both rows through the port's K3 entry against the JAX package's
+    ``fractional_read_resample`` (Pallas in interpret mode and its XLA
+    form), row by row: the band form's frac (qw - floor(qw)) rounds at
+    ulp(window), the gather's (ceil(ago) - ago) at ulp(ago), ~-95 dBFS."""
+    hist, x, ago = (_chorus_rows if geom == "chorus" else _wrap_rows)(n, seed=n)
+    got = fractional_read_resample(*(torch.from_numpy(a) for a in (hist, x, ago))).numpy()
+    assert got.shape == (2, n)
+    for use_pallas in ("interpret", False):
+        for r in range(2):
+            ref = np.asarray(jax_resample(jnp.asarray(hist[r]), jnp.asarray(x[r]),
+                                          jnp.asarray(ago[r]), TILE, WINDOW,
+                                          use_pallas=use_pallas))
+            assert err_dbfs(got[r], ref) <= -90, (use_pallas, r, err_dbfs(got[r], ref))
+
+
+@pytest.mark.parametrize("geom,n", K3_CASES)
+def test_fractional_read_plain_is_the_gather_per_row(geom, n):
+    """The plain version is JAX's gather read on each row, to the ulp; the
+    1-D form of the entry is the 2-D form's row."""
+    hist, x, ago = (_chorus_rows if geom == "chorus" else _wrap_rows)(n, seed=3 * n)
+    got = fractional_read_plain(*(torch.from_numpy(a) for a in (hist, x, ago))).numpy()
+    for r in range(2):
+        ref = np.asarray(jax_cubic(jnp.asarray(hist[r]), jnp.asarray(x[r]), jnp.asarray(ago[r])))
+        assert err_dbfs(got[r], ref) <= -120, err_dbfs(got[r], ref)
+        one = fractional_read_resample(*(torch.from_numpy(a[r]) for a in (hist, x, ago)),
+                                       tile=TILE, window=WINDOW)
+        assert np.array_equal(one.numpy(), got[r])
+
+
+def test_fractional_read_on_cpu_does_not_count_launches():
+    hist, x, ago = _chorus_rows(256, seed=1)
+    before = fractional_read.launches
+    fractional_read(*(torch.from_numpy(a) for a in (hist, x, ago)))
+    assert fractional_read.launches == before
