@@ -124,20 +124,24 @@ def build_chain(effects_config, fs, blocksize, channels_in=1, channels_out=2,
       (takes precedence) or effect type.
     device: where the chain's state and targets live ("cpu", "cuda", ...).
 
-    Unknown types are skipped like the reference (engine.py:56); types the
-    JAX package has but this port does not yet raise NotImplementedError.
+    Unknown types are skipped like the reference (engine.py:56); a
+    ``multiband`` config is expanded onto the parallel container
+    (core/multiband.py).
 
     Returns (chain, state, targets_map) where targets_map is the host-side
     {effect_id: params} dict mirroring the initial state."""
-    from aefs_tpu_torch.models import EFFECT_REGISTRY, UNPORTED
+    from aefs_tpu_torch.core.multiband import expand_multiband
+    from aefs_tpu_torch.models import EFFECT_REGISTRY
 
     static_overrides = static_overrides or {}
     effects, configs = [], {}
     for i, cfg in enumerate(effects_config):
         etype = cfg.get("type")
-        if etype in UNPORTED:
-            raise NotImplementedError(
-                f"effect type {etype!r} is not ported to aefs_tpu_torch yet")
+        if etype == "multiband":
+            # A Linkwitz-Riley band split over the parallel container; the
+            # expansion keeps the effect_id (or its absence).
+            cfg = expand_multiband(cfg)
+            etype = cfg["type"]
         cls = EFFECT_REGISTRY.get(etype)
         if cls is None:
             continue  # unknown types are skipped (engine.py:56)
@@ -152,7 +156,11 @@ def build_chain(effects_config, fs, blocksize, channels_in=1, channels_out=2,
         static.update(static_overrides.get(eid, {}))
         model = cls(fs, blocksize, channels=channels_out, device=device, **static)
         effects.append((eid, model))
-        configs[eid] = {k: v for k, v in params.items() if k in model.PARAMS}
+        # Live params are decided against the instance's table: a parallel
+        # container's lifted branch params exist only per instance, and
+        # their branch-config values (``_initial``) seed the targets too.
+        live = {k: v for k, v in params.items() if k in model.PARAMS}
+        configs[eid] = {**getattr(model, "_initial", {}), **live}
 
     chain = Chain(fs, channels_in, channels_out, blocksize, effects, device=device)
     chain.config_seeds = configs

@@ -14,6 +14,7 @@ import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
 from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.lfo import f64, fs_tensor
 from aefs_tpu_torch.ops.scan import biquad_block
 
 
@@ -36,16 +37,21 @@ class BiquadFilter(EffectModel):
         fs = float(self.fs)
         fc = torch.clamp(p["cutoff_hz"], max=0.45 * fs)
         q = p["q"]
-        w0 = 2.0 * math.pi * fc / fs
-        cw = torch.cos(w0)
-        sw = torch.sin(w0)
+        # A true division by a device tensor, and cos/sin in float64
+        # rounded once (models/lfo.py:f64): a low cutoff puts the poles
+        # near the unit circle, where the block scan turns an ulp of a
+        # coefficient into a large output difference between the card and
+        # the CPU.
+        w0 = 2.0 * math.pi * fc / fs_tensor(fs, fc.device)
+        cw = f64(torch.cos, w0)
+        sw = f64(torch.sin, w0)
         alpha = sw / (2.0 * q)
 
         t = torch.round(p["filter_type"]).to(torch.int32)
         one = [(t == k).to(torch.float32) for k in range(7)]
 
         gain_db = p.get("gain_db", torch.zeros((), device=fc.device))
-        big_a = torch.pow(10.0, gain_db / 40.0)
+        big_a = f64(lambda e: torch.pow(10.0, e), gain_db / torch.full_like(gain_db, 40.0))
         sq = torch.sqrt(big_a)
         tsa = 2.0 * sq * alpha
         ap1, am1 = big_a + 1.0, big_a - 1.0

@@ -9,11 +9,17 @@ Every IIR recurrence of the effects is solved for a whole block at once:
   one Toeplitz matmul per row chunk plus a carry scan);
 - second order (biquad)  -> ``linrec2`` (2x2 companion Hillis) and, for
   long signals, ``linrec2_file_fir`` (chunked Toeplitz matmul);
-- per-sample 2x2 (the wah's swept filter)  -> ``mat2_affine_hillis``.
+- per-sample 2x2 (the wah's swept filter)  -> ``mat2_affine_hillis``;
+- the dynamics family's semiring scans: peak decay  y[n] = max(b[n],
+  a[n]*y[n-1])  -> ``maxtimes_hillis`` / ``maxtimes_scan_long``; capped
+  release  y[n] = min(c[n], a[n]*y[n-1] + b[n])  -> ``minaffine_hillis``;
+  trailing-window min and sum -> ``window_min_trailing`` /
+  ``window_sum_trailing``.
 
 PyTorch has no public associative scan, so every scan here is a
 Hillis-Steele over the last axis: log2(N) levels of pad + slice + FMA.
-Same math as the reference up to reassociation.  All float32; the
+Same math as the reference up to reassociation.  All float32 except the
+biquad, which ``biquad_block`` solves in float64 (see there); the
 Toeplitz products go through ``_matmul``, which refuses TF32.
 """
 
@@ -99,6 +105,122 @@ def affine_scan_long(mult, add, init, chunk: int = 512):
     return y.reshape(m * c)[:n]
 
 
+def maxtimes_hillis(mult, add, init):
+    """Solve y[n] = max(add[n], mult[n]*y[n-1]) over the LAST axis,
+    y[-1] = init: the (max, x) semiring analogue of ``affine_hillis`` (the
+    compressor's peak decay).  The maps y -> max(b, a*y) with a >= 0
+    compose as (a1*a2, max(b2, a2*b1)); identity (1, 0) because every
+    operand is nonnegative.
+
+    mult, add: (..., N) nonnegative (``mult`` broadcast first); init:
+    nonnegative, broadcastable to one last-axis slice."""
+    n = add.shape[-1]
+    a = torch.broadcast_to(_f32(mult, add), add.shape)
+    b = add
+    s = 1
+    while s < n:
+        a_sh = _shift(a, s, 1.0)
+        b_sh = _shift(b, s)  # fill 0 = max identity
+        b = torch.maximum(a * b_sh, b)
+        a = a * a_sh
+        s *= 2
+    return torch.maximum(a * _f32(init, add), b)
+
+
+def maxtimes_scan_long(mult, add, init, chunk: int = 512):
+    """1-D ``maxtimes_hillis`` for long signals, two-level blocked like
+    ``affine_scan_long``.  mult, add: (N,) nonnegative; init: scalar."""
+    n = add.shape[0]
+    c = int(chunk)
+    if n <= c:
+        return maxtimes_hillis(mult, add, init)
+    m = -(-n // c)
+    a_c = F.pad(torch.broadcast_to(_f32(mult, add), (n,)), (0, m * c - n),
+                value=1.0).reshape(m, c)
+    b_c = F.pad(add, (0, m * c - n)).reshape(m, c)
+    s = 1
+    while s < c:
+        a_sh = _shift(a_c, s, 1.0)
+        b_sh = _shift(b_c, s)
+        b_c = torch.maximum(a_c * b_sh, b_c)
+        a_c = a_c * a_sh
+        s *= 2
+    init = _f32(init, add)
+    s_out = maxtimes_hillis(a_c[:, -1], b_c[:, -1], init)  # value leaving each row
+    s_in = torch.cat([init.reshape(1), s_out[:-1]])
+    y = torch.maximum(a_c * s_in[:, None], b_c)
+    return y.reshape(m * c)[:n]
+
+
+def minaffine_hillis(mult, add, cap, init):
+    """Solve y[n] = min(cap[n], mult[n]*y[n-1] + add[n]) over the LAST
+    axis, y[-1] = init: the limiter's capped release.  The maps
+    y -> min(c, a*y + b) with a >= 0 compose closed,
+    (a2*a1, a2*b1 + b2, min(c2, a2*c1 + b2)), identity (1, 0, no cap).
+
+    The identity's cap is the largest finite float32, not +inf as in the
+    JAX package: over a whole file the span products a^k underflow to 0,
+    and 0 * inf is NaN (JAX renders NaN there, e.g. "Master Bus" on the
+    18.6 s demo).  With a finite cap, a2 = 0 gives min(c2, b2), which is
+    exactly what the map y -> min(c2, 0*y + b2) is.  For a <= 1 the
+    result is otherwise the same.
+
+    mult, add, cap: (..., N), 0 <= a <= 1; init broadcastable to one
+    last-axis slice.  Returns y (..., N)."""
+    n = add.shape[-1]
+    a = torch.broadcast_to(_f32(mult, add), add.shape)
+    b = add
+    c = torch.broadcast_to(_f32(cap, add), add.shape)
+    no_cap = torch.finfo(torch.float32).max
+    s = 1
+    while s < n:
+        a1 = _shift(a, s, 1.0)
+        b1 = _shift(b, s)
+        c1 = _shift(c, s, no_cap)
+        a, b, c = a * a1, a * b1 + b, torch.minimum(c, a * c1 + b)
+        s *= 2
+    return torch.minimum(c, a * _f32(init, add) + b)
+
+
+def window_min_trailing(ext, w: int, n: int):
+    """min over the trailing ``w``-sample window, for the last ``n``
+    positions of ``ext`` (..., H + n) with H >= w - 1 history: power-of-two
+    window mins by pairwise min with a static shift, then one overlapping
+    combine for any w (valid for idempotent min)."""
+    m = ext
+    k = 1
+    while 2 * k <= w:
+        m = torch.minimum(m[..., k:], m[..., :-k])  # window 2k mins
+        k *= 2
+    if w > k:  # two k-windows covering w
+        m = torch.minimum(m[..., w - k:], m[..., : m.shape[-1] - (w - k)])
+    return m[..., -n:]
+
+
+def window_sum_trailing(ext, w: int, n: int):
+    """Sum over the trailing ``w``-sample window for the last ``n``
+    positions of ``ext``: w decomposed in binary into DISJOINT power-of-two
+    chunk sums.  Not a cumsum: every partial is a local sum of <= w terms,
+    where a running total loses ~ulp(N) per sample at file lengths."""
+    sums = {1: ext}
+    k = 1
+    while 2 * k <= w:
+        s = sums[k]
+        sums[2 * k] = s[..., k:] + s[..., :-k]
+        k *= 2
+    total = None
+    off = 0  # distance already consumed at the window's trailing end
+    k = 1
+    while k <= w:
+        if w & k:
+            s = sums[k]
+            sl = s[..., s.shape[-1] - n - off: s.shape[-1] - off]
+            total = sl if total is None else total + sl
+            off += k
+        k *= 2
+    return total
+
+
 def const_affine_hillis(h, add, init):
     """Solve y[n] = h*y[n-1] + add[n] over the LAST axis for a constant
     coefficient ``h`` (scalar, or (..., 1) against (..., N)), with h^s
@@ -167,12 +289,12 @@ def ar2_impulse(a1, a2, length: int):
     """h[0..length-1] of h[n] = -a1 h[n-1] - a2 h[n-2] (h[0] = 1) in
     CLOSED FORM over the pole structure — never log-doubling, which
     squares near-cancelling companion entries and yields NaN at legal
-    near-unit pole radii (the reference's ar2_impulse docstring)."""
-    a1 = torch.as_tensor(a1, dtype=torch.float32)
-    a2 = _f32(a2, a1)
+    near-unit pole radii (the reference's ar2_impulse docstring).  In the
+    dtype of ``a1`` (a tensor); the biquad calls it in float64."""
+    a2 = a2.to(a1.dtype)
     if length == 1:
-        return torch.ones((1,), device=a1.device)
-    n = torch.arange(length, dtype=torch.float32, device=a1.device)
+        return torch.ones((1,), dtype=a1.dtype, device=a1.device)
+    n = torch.arange(length, dtype=a1.dtype, device=a1.device)
     m = -0.5 * a1  # mean pole
     disc = m * m - a2
     scale = m * m + torch.abs(a2) + 1e-30
@@ -194,7 +316,7 @@ def ar2_impulse(a1, a2, length: int):
     h_crit = (n + 1.0) * _signed_pow(m, n)
 
     h = torch.where(is_crit, h_crit, torch.where(is_cplx, h_cplx, h_real))
-    return torch.cat([torch.ones((1,), device=h.device), h[1:]])
+    return torch.cat([torch.ones((1,), dtype=h.dtype, device=h.device), h[1:]])
 
 
 def _mat2_hillis(cp, cq, cr, cs, cu, cv):
@@ -241,13 +363,12 @@ def linrec2(v, a1, a2, y1, y2):
     """Solve y[n] = v[n] - a1*y[n-1] - a2*y[n-2] with y[-1]=y1, y[-2]=y2
     over the last axis.  v: (..., N); coefficients 0-dim; y1, y2: (...)."""
     shp = v.shape
-    a1 = _f32(a1, v)
-    a2 = _f32(a2, v)
+    a1 = a1.to(v.dtype)
+    a2 = a2.to(v.dtype)
+    ones = torch.ones(shp, dtype=v.dtype, device=v.device)
+    zeros = torch.zeros(shp, dtype=v.dtype, device=v.device)
     cp, cq, _, _, cu, _ = _mat2_hillis(
-        torch.broadcast_to(-a1, shp), torch.broadcast_to(-a2, shp),
-        torch.ones(shp, device=v.device), torch.zeros(shp, device=v.device),
-        v, torch.zeros(shp, device=v.device),
-    )
+        torch.broadcast_to(-a1, shp), torch.broadcast_to(-a2, shp), ones, zeros, v, zeros)
     return cp * y1[..., None] + cq * y2[..., None] + cu
 
 
@@ -258,8 +379,8 @@ def linrec2_file_fir(x, b0, b1, b2, a1, a2, x1, x2, y1, y2, chunk: int = 256):
     boundary; the (y[-1], y[-2]) carries cross chunks through a 2x2
     affine scan over the chunk summaries.
 
-    x: (..., N); coefficients 0-dim; x1, x2, y1, y2: (...).  Returns
-    y: (..., N)."""
+    x: (..., N); coefficients 0-dim tensors; x1, x2, y1, y2: (...), all in
+    one dtype.  Returns y: (..., N)."""
     n = x.shape[-1]
     c = int(chunk)
     m = -(-n // c)
@@ -267,7 +388,7 @@ def linrec2_file_fir(x, b0, b1, b2, a1, a2, x1, x2, y1, y2, chunk: int = 256):
     xp = F.pad(x, (0, m * c - n)).reshape(*lead, m, c)
 
     h = ar2_impulse(a1, a2, c + 1)  # AR impulse h[0..c]
-    z1 = torch.zeros((1,), device=x.device)
+    z1 = torch.zeros((1,), dtype=x.dtype, device=x.device)
     h_ba = (b0 * h[:c]
             + b1 * torch.cat([z1, h[: c - 1]])
             + b2 * torch.cat([z1, z1, h[: c - 2]]))
@@ -300,8 +421,21 @@ def linrec2_file_fir(x, b0, b1, b2, a1, a2, x1, x2, y1, y2, chunk: int = 256):
 def biquad_block(x, b0, b1, b2, a1, a2, state):
     """Direct-Form-I biquad over a block, per channel.
 
-    x: (C, N); state: (C, 4) = [x1, x2, y1, y2] per channel; coefficients
-    0-dim (constant within the block).  Returns (y, new_state)."""
+    x: (C, N) float32; state: (C, 4) = [x1, x2, y1, y2] per channel;
+    coefficients 0-dim float32 (constant within the block).  Returns (y,
+    new_state), float32.
+
+    Solved in float64 from the float32 coefficients, input and state, and
+    rounded once.  The JAX package solves in float32, and both its forms
+    lose most of the parity margin at low cutoffs: near-unit poles make the
+    companion scan's repeated squaring and the FIR fold's cancellation
+    ill-conditioned.  At the 150 Hz high-pass of the "Multiband Master"
+    crossover it stays only -40 dBFS (streaming) and -68 dBFS (file mode)
+    from the float64 oracle on the demo; in float64 the port meets the
+    oracle bar there too, and the CPU and the card do the same arithmetic."""
+    out_dtype = x.dtype
+    x, state = x.double(), state.double()
+    b0, b1, b2, a1, a2 = (c.double() for c in (b0, b1, b2, a1, a2))
     n = x.shape[-1]
     x1, x2, y1, y2 = state[:, 0], state[:, 1], state[:, 2], state[:, 3]
     if n >= 1024:
@@ -317,4 +451,4 @@ def biquad_block(x, b0, b1, b2, a1, a2, state):
         y = linrec2(v, a1, a2, y1, y2)
         xm1_last = xm1[:, -1]
     ym2 = y[:, -2] if n >= 2 else y1
-    return y, torch.stack([x[:, -1], xm1_last, y[:, -1], ym2], 1)
+    return y.to(out_dtype), torch.stack([x[:, -1], xm1_last, y[:, -1], ym2], 1).to(out_dtype)

@@ -17,16 +17,22 @@ Drives the port's main path (aefs_tpu_torch) end to end on the card:
    ``ringbuf.comb_bank_file_chunks`` at the flagship reverb's lags over the
    demo's length, against its plain version;
 7. file mode: ``process_offline`` of the flagship chain, the "Rain Delay"
-   preset and the five modulation presets ("Lush Chorus", "Jet Flanger",
-   "Psychedelic Sweep", "Funky Talk", "8-Bit Arcade") on
-   music/rain-demo.wav, each against the same render on the CPU;
-8. streaming: ``AudioEngine(device="cuda")`` with the flagship chain and
-   with "Lush Chorus", 375 blocks of 256 samples of the demo's mono mix
-   each, against the CPU engine.
+   preset, the five modulation presets ("Lush Chorus", "Jet Flanger",
+   "Psychedelic Sweep", "Funky Talk", "8-Bit Arcade") and the seven
+   presets of the dynamics/FFT/container slice ("Clean Noise Removal",
+   "Crunch", "Concert Hall (Convolution)", "Glue Bus", "Master Bus",
+   "Broadcast Voice", "Multiband Master") on music/rain-demo.wav, each
+   against the same render on the CPU;
+8. streaming: ``AudioEngine(device="cuda")`` with the flagship chain,
+   "Lush Chorus", "Concert Hall (Convolution)" and "Multiband Master",
+   375 blocks of 256 samples of the demo's mono mix each, against the CPU
+   engine.
 
 Every path of phases 6-8 runs from zeroed kernel launch counters, read
-just after it; each fails if a kernel it runs was not launched.  Any
-failure raises (non-zero exit).  The last two lines of standard output are
+just after it; each fails if a kernel it runs was not launched.  The last
+slice's paths run none of the four kernels (their FFTs are cuFFT, as the
+JAX package's are ``jnp.fft`` outside Pallas); their counts are recorded.
+Any failure raises (non-zero exit).  The last two lines of standard output are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.  Imports no
 JAX.
 """
@@ -48,7 +54,9 @@ from aefs_tpu_torch.core.config import DEFAULT_PRESETS
 from aefs_tpu_torch.engine.engine import AudioEngine, process_offline
 from aefs_tpu_torch.engine.wavio import read_wav_file
 from aefs_tpu_torch.models.reverb import Reverb
+from aefs_tpu_torch.models.spectral import SpectralFilter, db_to_lin
 from aefs_tpu_torch.ops import kernels
+from aefs_tpu_torch.ops.fftops import frame_signal
 from aefs_tpu_torch.ops.kernels.comb import (
     comb_chunks, comb_chunks_plain, comb_sums, comb_sums_plain)
 from aefs_tpu_torch.ops.kernels.resample import (
@@ -67,6 +75,8 @@ K4_Y_TOL, K4_DAMPED_TOL = K2_SUM_TOL, K2_TAIL_TOL
 DBFS_TOL = -90.0
 MODULATION_PRESETS = ("Lush Chorus", "Jet Flanger", "Psychedelic Sweep", "Funky Talk",
                       "8-Bit Arcade")
+LAST_SLICE_PRESETS = ("Clean Noise Removal", "Crunch", "Concert Hall (Convolution)",
+                      "Glue Bus", "Master Bus", "Broadcast Voice", "Multiband Master")
 # Every wrapper's launch counter, by the name the kernels' record uses.
 COUNTERS = {"octaver_taps": octaver_taps, "comb_sums": comb_sums,
             "fractional_read": fractional_read, "comb_chunks": comb_chunks}
@@ -286,9 +296,27 @@ def file_mode(name, cfg, audio, fs, need=()):
           launches=counts, vs_cpu_dbfs=err, peak=float(np.max(np.abs(out))))
 
 
-def streaming(name, cfg, mono, kernel):
-    """375 blocks through the card's engine from zeroed counters (``kernel``
-    launched exactly once per block), against the CPU engine."""
+def spectral_mask_flips(mono, threshold_db):
+    """The spectral gate's hard decisions (|X| > threshold per frame and
+    bin) over the demo's mono mix, on the card (cuFFT) and on the CPU
+    (pocketfft): how many differ.  A flipped bin is smoothed into later
+    frames, so this is what can move the card's render off the CPU's."""
+    decisions = {}
+    for d in ("cuda", "cpu"):
+        gate = SpectralFilter(FS, BLOCK, device=d)
+        x = torch.from_numpy(np.ascontiguousarray(mono[:, 0])).to(d)
+        frames, _ = frame_signal(torch.zeros(gate.hop, device=d), x, gate.n_fft, gate.hop)
+        mag = torch.abs(torch.fft.rfft(frames * gate.window))
+        decisions[d] = (mag > db_to_lin(torch.tensor(float(threshold_db), device=d))).cpu()
+    flips = int((decisions["cuda"] != decisions["cpu"]).sum())
+    phase("spectral_mask", threshold_db=threshold_db, decisions=decisions["cpu"].numel(),
+          above=int(decisions["cpu"].sum()), flips=flips)
+
+
+def streaming(name, cfg, mono, kernel=None):
+    """375 blocks through the card's engine from zeroed counters (``kernel``,
+    if the path has one, launched exactly once per block), against the CPU
+    engine."""
     blocks = [mono[i * BLOCK:(i + 1) * BLOCK] for i in range(STREAM_BLOCKS)]
     eng = AudioEngine(device="cuda")
     eng.build_chain(cfg)
@@ -301,13 +329,16 @@ def streaming(name, cfg, mono, kernel):
             lat.append(1000.0 * (time.perf_counter() - t0))
         return lat, outs
 
-    (lat, outs), counts = count_launches(run, need=(kernel,), per_block=STREAM_BLOCKS)
+    (lat, outs), counts = count_launches(run, need=(kernel,) if kernel else (),
+                                         per_block=STREAM_BLOCKS)
     got = np.concatenate(outs)
     if got.shape != (STREAM_BLOCKS * BLOCK, 2) or not np.all(np.isfinite(got)):
         raise AssertionError(f"streaming {name}: bad output {got.shape}")
     ref_eng = AudioEngine(device="cpu")
     ref_eng.build_chain(cfg)
+    t0 = time.perf_counter()
     ref = np.concatenate([ref_eng.process_stream_block(b) for b in blocks])
+    t_cpu = time.perf_counter() - t0
     err = err_dbfs(got, ref)
     if not err <= DBFS_TOL:
         raise AssertionError(f"streaming {name}: card vs CPU {err:.1f} dBFS > {DBFS_TOL}")
@@ -316,7 +347,8 @@ def streaming(name, cfg, mono, kernel):
     phase("streaming", chain=name, blocks=STREAM_BLOCKS, block=BLOCK, launches=counts,
           vs_cpu_dbfs=err, median_ms=statistics.median(lat), p99_ms=p99,
           max_ms=max(lat), first_ms=lat[0], budget_ms=BUDGET_MS,
-          within_budget_share=sum(t <= BUDGET_MS for t in lat) / len(lat))
+          within_budget_share=sum(t <= BUDGET_MS for t in lat) / len(lat),
+          cpu_engine_wall_s=t_cpu)
 
 
 def main():
@@ -337,9 +369,17 @@ def main():
     for preset in MODULATION_PRESETS:
         need = ("fractional_read", "comb_sums") if preset == "Lush Chorus" else ()
         file_mode(preset, DEFAULT_PRESETS[preset], demo, fs, need=need)
+    for preset in LAST_SLICE_PRESETS:
+        file_mode(preset, DEFAULT_PRESETS[preset], demo, fs)
     mono = demo.mean(axis=1, keepdims=True).astype(np.float32)
+    # The preset's threshold, and -20 dB (a JAX parity case), where the
+    # demo's bins split about evenly and far more sit near the threshold.
+    for threshold_db in (DEFAULT_PRESETS["Clean Noise Removal"][0]["params"]["threshold_db"], -20):
+        spectral_mask_flips(mono, threshold_db)
     streaming("flagship", FLAGSHIP, mono, "octaver_taps")
     streaming("Lush Chorus", DEFAULT_PRESETS["Lush Chorus"], mono, "fractional_read")
+    for preset in ("Concert Hall (Convolution)", "Multiband Master"):
+        streaming(preset, DEFAULT_PRESETS[preset], mono)
 
     print(json.dumps({"kernels": [
         {"name": "octaver_taps", "route": "cuda", "source": "aefs_tpu_torch/csrc/resample.cu",

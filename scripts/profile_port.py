@@ -56,7 +56,7 @@ from __graft_entry__ import FLAGSHIP  # noqa: E402
 from aefs_tpu_torch.core.config import DEFAULT_PRESETS  # noqa: E402
 from aefs_tpu_torch.engine.engine import AudioEngine, process_offline  # noqa: E402
 from aefs_tpu_torch.engine.wavio import read_wav_file  # noqa: E402
-from aefs_tpu_torch.models import EFFECT_REGISTRY  # noqa: E402
+from aefs_tpu_torch.models import EFFECT_REGISTRY, ParallelChains  # noqa: E402
 
 BLOCK = 256
 
@@ -64,9 +64,11 @@ BLOCK = 256
 @contextmanager
 def effect_spans():
     """Wrap every registered effect's process/process_file in a
-    record_function span named ``fx:<kind>``; restore on exit."""
+    record_function span named ``fx:<kind>``; restore on exit.  The parallel
+    container gets no span of its own: its branch effects get theirs, and
+    nested spans would count their time twice."""
     saved = []
-    for cls in set(EFFECT_REGISTRY.values()):
+    for cls in set(EFFECT_REGISTRY.values()) - {ParallelChains}:
         for meth in ("process", "process_file"):
             if meth not in vars(cls):
                 continue

@@ -16,7 +16,7 @@ from aefs_tpu_torch import check_precision
 from aefs_tpu_torch.core.chain import build_chain
 from aefs_tpu_torch.core.convert import state_from_numpy, state_to_numpy
 from aefs_tpu_torch.engine.engine import AudioEngine, process_offline
-from aefs_tpu_torch.models import EFFECT_REGISTRY, UNPORTED
+from aefs_tpu_torch.models import EFFECT_REGISTRY
 from __graft_entry__ import FLAGSHIP
 
 from helpers import bursts, mono, noise, tones
@@ -159,16 +159,23 @@ def test_engine_file_array_uses_last_config():
 
 
 def test_registry_covers_jax_registry():
-    """Every JAX effect type is either ported or listed as not ported."""
-    assert set(EFFECT_REGISTRY) | set(UNPORTED) == set(JAX_REGISTRY) | {"multiband"}
-    assert not set(EFFECT_REGISTRY) & set(UNPORTED)
+    """The port's registry equals JAX's: every effect type is ported."""
+    assert set(EFFECT_REGISTRY) == set(JAX_REGISTRY)
 
 
-@pytest.mark.parametrize("etype", sorted(UNPORTED))
-def test_unported_effect_type_raises(etype):
-    cfg = FLAGSHIP[:2] + [{"effect_id": "z", "type": etype, "params": {}}]
-    with pytest.raises(NotImplementedError, match=etype):
-        build_chain(cfg, FS, N, device="cpu")
+@pytest.mark.parametrize("etype", ["compressor", "convreverb", "limiter", "multiband",
+                                   "parallel", "spectral", "stereowidth", "waveshaper"])
+def test_last_slice_effect_type_builds(etype):
+    """The types this slice ports build behind the flagship's head and
+    report their kind (``multiband`` expands onto the parallel container)."""
+    extra = {"ir_seconds": 0.05} if etype == "convreverb" else {}
+    cfg = FLAGSHIP[:2] + [{"effect_id": "z", "type": etype, "params": extra}]
+    chain, state, tmap = build_chain(cfg, FS, N, device="cpu")
+    model = dict(chain.effects)["z"]
+    assert model.kind == ("parallel" if etype == "multiband" else etype)
+    assert isinstance(model, EFFECT_REGISTRY[model.kind])
+    _, y = chain.process_block(state, chain.targets(tmap), torch.zeros((1, N)))
+    assert y.shape == (2, N) and bool(torch.isfinite(y).all())
 
 
 def test_unknown_effect_type_skipped():
@@ -272,3 +279,86 @@ def test_lush_chorus_on_noise_bursts_vs_jax(mode):
     got, ref = _offline_both("Lush Chorus", x) if mode == "offline" else \
         _streaming_both("Lush Chorus", mono(x[:(FS // N) * N]))
     assert err_dbfs(got, ref) <= -80, err_dbfs(got, ref)
+
+
+# --- The last slice: dynamics, FFT effects and the containers ---------------
+
+LAST_SLICE_PRESETS = ["Clean Noise Removal", "Crunch", "Concert Hall (Convolution)", "Glue Bus",
+                      "Master Bus", "Broadcast Voice", "Multiband Master"]
+PROGRAM.update({"Clean Noise Removal": "gate", "Crunch": "tones"})
+
+
+def _last_program(name, frames, seed):
+    kind = PROGRAM.get(name, "bursts")
+    if kind == "gate":  # the JAX spectral parity test's program
+        return (noise(frames, amp=0.1, seed=seed) + tones(frames, amp=0.2)).astype(np.float32)
+    return _program(kind, frames, seed)
+
+
+def _oracle_chain(cfg, x_mono):
+    """A chain of filters, compressors, width and limiter (with parallel
+    branches) as float64 oracles, mono fanned to stereo."""
+    from oracles import OracleCompressor, OracleLimiter, OracleStereoWidth
+
+    kinds = {"filter": OracleBiquad, "compressor": OracleCompressor,
+             "stereowidth": OracleStereoWidth, "limiter": OracleLimiter}
+
+    def run(effects, sig):
+        for c in effects:
+            sig = run_oracle_blocks(kinds[c["type"]](FS, **c["params"]), sig, N)
+        return sig
+
+    sig = np.repeat(x_mono.astype(np.float64), 2, axis=1)
+    for c in cfg:
+        if c["type"] == "parallel":
+            gains = c.get("params", {})
+            sig = np.clip(sum(gains.get(f"gain_{bi}", 1.0) * run(br, sig)
+                              for bi, br in enumerate(c["branches"])), -1.0, 1.0)
+        else:
+            sig = run([c], sig)
+    return sig
+
+
+@pytest.mark.parametrize("name", LAST_SLICE_PRESETS)
+@pytest.mark.parametrize("mode", ["offline", "streaming"])
+def test_last_slice_preset_vs_jax(name, mode):
+    """File mode through ``process_offline`` and 256-sample streaming
+    through ``AudioEngine`` on 1 s of seeded program, against JAX.
+
+    "Multiband Master" is the stated exception: the JAX package solves its
+    biquads in float32, which at the 150 Hz crossover stays only -30 dBFS
+    (streaming) and -60 dBFS (file) from the float64 oracle; the port
+    solves them in float64 (ops/scan.py:biquad_block).  There the port is
+    held to the oracle chain at -80 dBFS, and its whole gap to JAX must be
+    JAX's own distance from the oracle."""
+    x = _last_program(name, FS, seed=12)
+    if mode == "offline":
+        got, ref = _offline_both(name, x)
+    else:
+        got, ref = _streaming_both(name, mono(x[:(FS // N) * N]))
+    if name != "Multiband Master":
+        assert err_dbfs(got, ref) <= -90, err_dbfs(got, ref)
+        return
+    from aefs_tpu_torch.core.config import DEFAULT_PRESETS
+
+    m = mono(x) if mode == "offline" else mono(x[:(FS // N) * N])
+    oracle = np.clip(_oracle_chain(DEFAULT_PRESETS[name], m), -1.0, 1.0)
+    assert err_dbfs(got, oracle) <= -80, err_dbfs(got, oracle)
+    assert err_dbfs(got, ref) <= err_dbfs(ref, oracle) + 1.0, (err_dbfs(got, ref),
+                                                              err_dbfs(ref, oracle))
+
+
+def test_every_preset_builds():
+    """All 17 factory presets, and a compact multiband config, build on the
+    port's registry and step one block."""
+    from aefs_tpu_torch.core.config import DEFAULT_PRESETS
+
+    compact = [{"effect_id": "mb", "type": "multiband", "crossover_hz": [250.0, 2500.0],
+                "branches": [[{"effect_id": "c", "type": "compressor", "params": {}}]]}]
+    configs = list(DEFAULT_PRESETS.values()) + [compact]
+    assert len(configs) == 18
+    for cfg in configs:
+        chain, state, tmap = build_chain(cfg, FS, N, device="cpu")
+        assert len(chain.effects) == len(cfg)
+        _, y = chain.process_block(state, chain.targets(tmap), torch.zeros((1, N)))
+        assert bool(torch.isfinite(y).all())

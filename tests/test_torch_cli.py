@@ -24,40 +24,39 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-def test_cli_rain_delay_matches_jax_render(tmp_path):
-    x = (tones(FS // 2, fs=FS) + bursts(FS // 2, amp=0.2)).astype(np.float32)
+def _cli_vs_jax(tmp_path, preset, x):
+    """The CLI's render of ``x`` with ``preset`` against the JAX render,
+    both written as 16-bit WAVs: at most one step apart."""
     src = tmp_path / "in.wav"
     jax_write(str(src), x, FS)
     out = tmp_path / "out.wav"
-    assert cli.main([str(src), str(out), "--preset", "Rain Delay", "--device", "cpu"]) == 0
+    assert cli.main([str(src), str(out), "--preset", preset, "--device", "cpu"]) == 0
 
     audio, fs = jax_read(str(src))
-    _, ref = jax_offline(DEFAULT_PRESETS["Rain Delay"], audio, fs)
+    _, ref = jax_offline(DEFAULT_PRESETS[preset], audio, fs)
     jax_write(str(tmp_path / "ref.wav"), ref, fs)
     got, fs_got = read_wav_file(str(out))
     want, _ = read_wav_file(str(tmp_path / "ref.wav"))
-    assert fs_got == FS and got.shape == want.shape == (FS // 2, 2)
+    assert fs_got == FS and got.shape == want.shape == (x.shape[0], 2)
     lsb = np.max(np.abs(got.astype(np.float64) - want.astype(np.float64))) * 32768.0
     assert lsb <= 1.0 + 1e-9, lsb
+
+
+def test_cli_rain_delay_matches_jax_render(tmp_path):
+    x = (tones(FS // 2, fs=FS) + bursts(FS // 2, amp=0.2)).astype(np.float32)
+    _cli_vs_jax(tmp_path, "Rain Delay", x)
 
 
 def test_cli_lush_chorus_matches_jax_render(tmp_path):
     """A modulation preset through the CLI: chorus (read through K3's entry)
     into the reverb, against the JAX render to one 16-bit step."""
-    x = tones(FS // 2, fs=FS)
-    src = tmp_path / "in.wav"
-    jax_write(str(src), x, FS)
-    out = tmp_path / "out.wav"
-    assert cli.main([str(src), str(out), "--preset", "Lush Chorus", "--device", "cpu"]) == 0
+    _cli_vs_jax(tmp_path, "Lush Chorus", tones(FS // 2, fs=FS))
 
-    audio, fs = jax_read(str(src))
-    _, ref = jax_offline(DEFAULT_PRESETS["Lush Chorus"], audio, fs)
-    jax_write(str(tmp_path / "ref.wav"), ref, fs)
-    got, _ = read_wav_file(str(out))
-    want, _ = read_wav_file(str(tmp_path / "ref.wav"))
-    assert got.shape == want.shape == (FS // 2, 2)
-    lsb = np.max(np.abs(got.astype(np.float64) - want.astype(np.float64))) * 32768.0
-    assert lsb <= 1.0 + 1e-9, lsb
+
+def test_cli_master_bus_matches_jax_render(tmp_path):
+    """A dynamics preset through the CLI: compressor, width and look-ahead
+    limiter, against the JAX render to one 16-bit step."""
+    _cli_vs_jax(tmp_path, "Master Bus", bursts(FS // 2, amp=0.6))
 
 
 def test_cli_list_presets(capsys):

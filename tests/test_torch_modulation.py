@@ -257,8 +257,8 @@ def test_mat2_affine_hillis_matches_jax():
 
 @pytest.mark.parametrize("etype", TYPES)
 def test_modulation_type_is_ported(etype):
-    from aefs_tpu_torch.models import EFFECT_REGISTRY, UNPORTED
+    from aefs_tpu_torch.models import EFFECT_REGISTRY
 
-    assert etype in EFFECT_REGISTRY and etype not in UNPORTED
+    assert etype in EFFECT_REGISTRY
     chain, _, _ = build_chain(_cfg(etype, {}), FS, N, device="cpu")
     assert chain.effects[0][1].kind == etype
