@@ -85,7 +85,7 @@ def library():
             lib.aefs_fractional_read.argtypes = [p, p, p, p, i, i, i, p]
             lib.aefs_fractional_read.restype = i
             lib.aefs_comb_sums.argtypes = [
-                p, i, i, p, p, p, i, p, p, i, i, i, i, p, p, p]
+                p, i, i, p, p, p, i, p, p, i, i, i, i, p, p, p, p]
             lib.aefs_comb_sums.restype = i
             lib.aefs_comb_chunks.argtypes = [p, i, i, p, p, p, p, i, i, i, p, p, p]
             lib.aefs_comb_chunks.restype = i

@@ -6,7 +6,9 @@ K2 replaces the TPU kernel ``aefs_tpu/ops/pallas/comb.py:_make_sums_kernel``
 (contract of ``comb_bank_file_pallas_sums``), K4 replaces ``comb.py:_make_kernel``
 (contract of ``comb_bank_file_pallas``).  The TPU kernels carry the chunk
 recursion across sequential grid steps; the CUDA kernel runs the chunk loop
-inside one thread block per side.  The plain versions share one loop, the
+inside one thread block per comb, each thread holding a few consecutive
+lanes of a chunk (the launcher picks how many from C); K2 then sums each
+side's combs in a second kernel.  The plain versions share one loop, the
 reference's exact-recursion fallback (``ringbuf.comb_bank_file_chunks``'
 XLA path): a full-fp32 (C, C) damping propagator per chunk.
 """
@@ -24,8 +26,9 @@ from aefs_tpu_torch.ops.kernels import check, library, require_cuda_f32, stream_
 
 # Tap budget for the static-h truncated-FIR damping: taps = J+1 with
 # J = ceil(-40/log2 h), so the cutoff is h <= 2^(-40/31) ~= 0.409; larger
-# h keeps the scan.
+# h keeps the scan.  Also the length of the kernel's by-value weight array.
 _FIR_TAP_BUDGET = 32
+MAX_COMBS = 16  # AEFS_MAX_COMBS in csrc/comb.cu
 
 
 def fir_damp_weights(h_static: float, budget: int = _FIR_TAP_BUDGET):
@@ -43,6 +46,19 @@ def fir_damp_weights(h_static: float, budget: int = _FIR_TAP_BUDGET):
     if j + 1 > budget:
         return None
     return tuple(np.float32((1.0 - h) * h**t) for t in range(j + 1))
+
+
+def fir_kernel_weights(h_static):
+    """The damping argument the kernel takes by value: (w, n_taps), w a
+    float32 array of ``_FIR_TAP_BUDGET`` holding ``fir_damp_weights(h_static)``
+    zero-padded.  n_taps == 0 (w all zeros) selects the scan: h_static None,
+    outside [0, 1), or needing more taps than the budget."""
+    w = np.zeros(_FIR_TAP_BUDGET, np.float32)
+    fir = None if h_static is None else fir_damp_weights(h_static)
+    if fir is None:
+        return w, 0
+    w[:len(fir)] = fir
+    return w, len(fir)
 
 
 def comb_chunks_plain(x, g, h, lags, c, side_of):
@@ -114,6 +130,8 @@ def _check_operands(name, x, g, h, lags, c, side_of):
         raise ValueError(f"{name}: x must be (S, N), got {tuple(x.shape)}")
     if len({x.device, g.device, h.device}) != 1:
         raise ValueError(f"{name} operands must share one device")
+    if not 1 <= b <= MAX_COMBS:
+        raise ValueError(f"{name}: {b} combs (the kernel takes 1 to {MAX_COMBS})")
     if len(side_of) != b or not all(0 <= s < s_rows for s in side_of):
         raise ValueError(f"side_of {side_of} does not map {b} combs onto {s_rows} rows")
     if not all(c <= lag < 2 * c for lag in lags):
@@ -131,7 +149,8 @@ def comb_sums(x, g, h, lags, c, side_of, n_sides, h_static=None):
 
     Returns (ysum (n_sides, M, C), d_tail (3, B, C)), M = ceil(N / C).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``comb_sums.launches``) or raise."""
+    (counted in ``comb_sums.launches``) or raise, also for a chunk whose
+    block the card cannot hold (C > 14,336 on the H100)."""
     lags = tuple(int(l) for l in lags)
     side_of = tuple(int(s) for s in side_of)
     if x.device.type == "cpu":
@@ -140,19 +159,16 @@ def comb_sums(x, g, h, lags, c, side_of, n_sides, h_static=None):
     s_rows, n = x.shape
     b = len(lags)
     m = -(-n // c)
-    fir = None if h_static is None else fir_damp_weights(h_static)
-    fir_t = (torch.tensor(np.asarray(fir, np.float32), device=x.device)
-             if fir is not None else None)
+    w, n_taps = fir_kernel_weights(h_static)
+    y = torch.empty((m, b, c), dtype=torch.float32, device=x.device)
     ysum = torch.empty((n_sides, m, c), dtype=torch.float32, device=x.device)
     d_tail = torch.empty((3, b, c), dtype=torch.float32, device=x.device)
     lags_c = (ctypes.c_int * b)(*lags)
     side_c = (ctypes.c_int * b)(*side_of)
     err = library().aefs_comb_sums(
-        x.data_ptr(), s_rows, n, g.data_ptr(), h.data_ptr(),
-        fir_t.data_ptr() if fir_t is not None else None,
-        len(fir) if fir is not None else 0,
+        x.data_ptr(), s_rows, n, g.data_ptr(), h.data_ptr(), w.ctypes.data, n_taps,
         ctypes.addressof(lags_c), ctypes.addressof(side_c), b, c, m, n_sides,
-        ysum.data_ptr(), d_tail.data_ptr(), stream_ptr(x.device))
+        y.data_ptr(), ysum.data_ptr(), d_tail.data_ptr(), stream_ptr(x.device))
     check(err, "comb_sums")
     comb_sums.launches += 1
     return ysum, d_tail
@@ -170,7 +186,7 @@ def comb_chunks(x, g, h, lags, c, side_of):
 
     Returns (y, damped), each (M, B, C), M = ceil(N / C).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``comb_chunks.launches``) or raise."""
+    (counted in ``comb_chunks.launches``) or raise, as for ``comb_sums``."""
     lags = tuple(int(l) for l in lags)
     side_of = tuple(int(s) for s in side_of)
     if x.device.type == "cpu":

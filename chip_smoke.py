@@ -32,6 +32,15 @@ Every path of phases 6-8 runs from zeroed kernel launch counters, read
 just after it; each fails if a kernel it runs was not launched.  The last
 slice's paths run none of the four kernels (their FFTs are cuFFT, as the
 JAX package's are ``jnp.fft`` outside Pallas); their counts are recorded.
+
+Each kernel's record holds its time per wrapper call (CUDA events over
+back-to-back calls, host cost included), its device-only time (the kernel
+durations ``torch.profiler`` records, per call) and its bound: the larger
+of the bytes it must move (each input read once, each output written once)
+over 3.35 TB/s and its float32 operations over 67 TFLOP/s, from this run's
+shapes.  No single PyTorch call computes any of the four functions, so
+``library_ms`` is null.
+
 Any failure raises (non-zero exit).  The last two lines of standard output are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.  Imports no
 JAX.
@@ -48,6 +57,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from __graft_entry__ import FLAGSHIP
 from aefs_tpu_torch.core.config import DEFAULT_PRESETS
@@ -73,6 +83,12 @@ K1_TOL = 2e-6
 K2_SUM_TOL, K2_TAIL_TOL = 1e-5, 1e-4
 K4_Y_TOL, K4_DAMPED_TOL = K2_SUM_TOL, K2_TAIL_TOL
 DBFS_TOL = -90.0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+HERMITE_FLOPS = 20  # per tap read: frac, the four coefficients, Horner (K1, K3)
+# Per comb and sample of the comb recursion: y = x + g r (2), then
+# damped = h d + (1 - h) y (3, with 1 - h formed once) (K2, K4).
+COMB_OPS = 5
 MODULATION_PRESETS = ("Lush Chorus", "Jet Flanger", "Psychedelic Sweep", "Funky Talk",
                       "8-Bit Arcade")
 LAST_SLICE_PRESETS = ("Clean Noise Removal", "Crunch", "Concert Hall (Convolution)",
@@ -104,6 +120,39 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound(n_bytes, flops):
+    """The least time the card could take: the larger of bytes over the
+    memory rate and float32 operations over the peak rate, in ms."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return {"bound_ms": 1000.0 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "flops": flops}
+
+
+def record(max_abs_err, ms, dev_ms, plain_ms, bnd, **extra):
+    """One kernel's entry of the kernels' JSON line (no library call)."""
+    return {"max_abs_err": max_abs_err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            **extra, "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+            "library_ms": None}
+
+
+def device_ms(fn, kernel_names, reps):
+    """Device time per call of ``fn``: the summed durations of the device
+    kernels whose names contain one of ``kernel_names``, under
+    ``torch.profiler`` over ``reps`` calls after one warm-up call; None
+    if the profiler recorded none."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ns = sum(ev.duration_ns() for ev in prof.profiler.kineto_results.events()
+             if ev.device_type() == cuda and any(k in ev.name() for k in kernel_names))
+    return ns / 1e6 / reps if ns else None
 
 
 def count_launches(run, need=(), per_block=None):
@@ -177,9 +226,12 @@ def check_k1(dev):
     ago2 = torch.from_numpy(np.mod(p1 + np.float32(0.5), 1.0).astype(np.float32) * size).to(dev)
     ms = cuda_ms(lambda: octaver_taps(hist, x, ago1, ago2), 2000)
     plain_ms = cuda_ms(lambda: octaver_taps_plain(hist, x, ago1, ago2), 200)
+    dev_ms = device_ms(lambda: octaver_taps(hist, x, ago1, ago2), ("octaver_taps_kernel",), 200)
+    # Reads hist, x, ago1, ago2; writes both taps.
+    bnd = bound(4 * (size + 3 * BLOCK) + 4 * 2 * BLOCK, HERMITE_FLOPS * 2 * BLOCK)
     phase("k1_octaver_taps", max_abs_err=worst, tol=K1_TOL, shape=[size, BLOCK],
-          ms=ms, plain_ms=plain_ms)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+          ms=ms, device_ms=dev_ms, plain_ms=plain_ms, **bnd)
+    return record(worst, ms, dev_ms, plain_ms, bnd)
 
 
 def check_k2(dev, demo):
@@ -191,7 +243,9 @@ def check_k2(dev, demo):
     c = comb_chunk_size(lags)
     x = torch.from_numpy(np.ascontiguousarray(demo.T)).to(dev)  # (2, N) real audio
     g = torch.pow(10.0, -3.0 * (torch.tensor(lags, dtype=torch.float32) / FS) / 2.1).to(dev)
-    worst, times = 0.0, {}
+    n, b = x.shape[1], len(lags)
+    m = -(-n // c)
+    worst, res = 0.0, {}
     for h, h_static in ((0.05, 0.05), (0.6, None)):
         ht = torch.tensor(h, dtype=torch.float32, device=dev)
         ysum, d_tail = comb_sums(x, g, ht, lags, c, side_of, 2, h_static)
@@ -203,15 +257,22 @@ def check_k2(dev, demo):
             raise AssertionError(f"K2 h={h}: sums {e_sum}, tail {e_tail}")
         if not (torch.isfinite(ysum).all() and torch.isfinite(d_tail).all()):
             raise AssertionError("K2 output not finite")
-        ms = cuda_ms(lambda: comb_sums(x, g, ht, lags, c, side_of, 2, h_static), 5)
+        run = lambda: comb_sums(x, g, ht, lags, c, side_of, 2, h_static)  # noqa: E731
+        ms = cuda_ms(run, 20)
+        dev_ms = device_ms(run, ("comb_bank_kernel", "comb_side_sums_kernel"), 10)
         plain_ms = cuda_ms(lambda: comb_sums_plain(x, g, ht, lags, c, side_of, 2), 3)
-        times[h] = (ms, plain_ms)
+        # What the function needs, whichever damping the kernel runs: per
+        # comb and lane the recursion's COMB_OPS, and one add into its side.
+        bnd = bound(4 * (x.numel() + b + 1) + 4 * (2 * m * c + 3 * b * c),
+                    b * m * c * (COMB_OPS + 1))
         worst = max(worst, e_sum, e_tail)
+        res[h] = (ms, dev_ms, plain_ms, bnd)
         phase("k2_comb_sums", damping="fir" if h_static is not None else "scan", h=h,
-              n=x.shape[1], chunk=c, chunks=-(-x.shape[1] // c), lags=list(lags),
-              max_abs_err_sums=e_sum, max_abs_err_tail=e_tail, ms=ms, plain_ms=plain_ms)
-    ms, plain_ms = times[0.05]  # the flagship's path
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+              n=n, chunk=c, chunks=m, lags=list(lags), max_abs_err_sums=e_sum,
+              max_abs_err_tail=e_tail, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+              us_per_step=1000.0 * ms / m, **bnd)
+    ms, dev_ms, plain_ms, bnd = res[0.05]  # the flagship's path
+    return record(worst, ms, dev_ms, plain_ms, bnd, us_per_step=1000.0 * ms / m)
 
 
 def check_k3(dev, n_file):
@@ -234,8 +295,14 @@ def check_k3(dev, n_file):
             raise AssertionError(f"K3 2x{n}: not bitwise equal to plain (max abs {err})")
         ms = cuda_ms(lambda: fractional_read(hist, x, ago), reps)
         plain_ms = cuda_ms(lambda: fractional_read_plain(hist, x, ago), plain_reps)
-        res[n] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        phase("k3_fractional_read", shape=[2, n], hist=2408, bitwise=True, **res[n])
+        dev_ms = device_ms(lambda: fractional_read(hist, x, ago), ("fractional_read_kernel",),
+                           min(reps, 200))
+        # Reads hist, x, ago; writes one tap per (row, sample).
+        bnd = bound(4 * (hist.numel() + 2 * x.numel()) + 4 * x.numel(),
+                    HERMITE_FLOPS * x.numel())
+        res[n] = record(err, ms, dev_ms, plain_ms, bnd)
+        phase("k3_fractional_read", shape=[2, n], hist=2408, bitwise=True, **res[n],
+              bytes=bnd["bytes"], flops=bnd["flops"])
     return res[BLOCK]
 
 
@@ -259,12 +326,17 @@ def check_k4(dev, demo):
         raise AssertionError(f"K4: y {e_y}, damped {e_d}")
     if not (torch.isfinite(y).all() and torch.isfinite(damped).all()):
         raise AssertionError("K4 output not finite")
-    ms = cuda_ms(lambda: comb_chunks(x, g, h, lags, c, side_of), 5)
+    run = lambda: comb_chunks(x, g, h, lags, c, side_of)  # noqa: E731
+    ms = cuda_ms(run, 20)
+    dev_ms = device_ms(run, ("comb_bank_kernel",), 10)
     plain_ms = cuda_ms(lambda: comb_chunks_plain(x, g, h, lags, c, side_of), 3)
-    phase("k4_comb_chunks", n=x.shape[1], chunk=c, chunks=y.shape[0], lags=list(lags),
+    m, b = y.shape[0], len(lags)
+    # Reads x, g, h; writes y and damped; the recursion's COMB_OPS per comb and lane.
+    bnd = bound(4 * (x.numel() + b + 1) + 4 * 2 * m * b * c, b * m * c * COMB_OPS)
+    phase("k4_comb_chunks", n=x.shape[1], chunk=c, chunks=m, lags=list(lags),
           entry_launches=counts["comb_chunks"], max_abs_err_y=e_y, max_abs_err_damped=e_d,
-          ms=ms, plain_ms=plain_ms)
-    return {"max_abs_err": max(e_y, e_d), "ms": ms, "plain_ms": plain_ms}
+          ms=ms, device_ms=dev_ms, plain_ms=plain_ms, us_per_step=1000.0 * ms / m, **bnd)
+    return record(max(e_y, e_d), ms, dev_ms, plain_ms, bnd, us_per_step=1000.0 * ms / m)
 
 
 def file_mode(name, cfg, audio, fs, need=()):

@@ -65,6 +65,24 @@ def test_fir_damp_weights_match_jax(h):
         assert np.array_equal(np.asarray(ours), np.asarray(ref))
 
 
+@pytest.mark.parametrize("h_static", [None, 0.0, 0.05, 0.2, 0.40, 0.41, 0.99])
+def test_fir_kernel_weights(h_static):
+    """The kernel's by-value damping argument: JAX's FIR taps bit for bit,
+    zero-padded to 32; no taps (the scan) for None and past the budget."""
+    from aefs_tpu_torch.ops.kernels.comb import fir_kernel_weights
+
+    w, n_taps = fir_kernel_weights(h_static)
+    assert w.dtype == np.float32 and w.shape == (32,)
+    ref = None if h_static is None else jax_fir_weights(h_static)
+    if ref is None:
+        assert n_taps == 0 and not w.any()
+    else:
+        assert n_taps == len(ref)
+        assert np.array_equal(w[:n_taps], np.asarray(ref, np.float32))
+        assert not w[n_taps:].any()
+    assert (n_taps == 0) == (h_static is None or h_static > 0.40)
+
+
 def test_plain_sums_on_cpu_do_not_count_launches():
     x = torch.zeros((2, 3000))
     before = comb_sums.launches

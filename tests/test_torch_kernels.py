@@ -122,6 +122,152 @@ def test_comb_sums_kernel_matches_plain(dev, n, h_static, h):
     assert float((d_tail - d_ref).abs().max()) < 1e-4
 
 
+# The flagship reverb's lags (C = 1408) and a short set (C = min(lags) =
+# 100: 50 threads at 2 lanes, not a multiple of a warp).
+LAGS8 = (1425, 1780, 1972, 2097, 1411, 1766, 1958, 2083)
+SHORT8 = (100, 117, 133, 151, 163, 178, 190, 199)
+REVERB_SIDES = (0, 0, 0, 0, 1, 1, 1, 1)
+
+
+def _comb_operands(dev, lags, rows, n, h, seed=5):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((0.3 * rng.standard_normal((rows, n))).astype(np.float32)).to(dev)
+    g = torch.from_numpy(np.linspace(0.5, 0.9, len(lags)).astype(np.float32)).to(dev)
+    return x, g, torch.tensor(h, dtype=torch.float32, device=dev)
+
+
+def _sums_vs_plain(dev, lags, side_of, n_sides, n, h, h_static):
+    from aefs_tpu_torch.ops.kernels.comb import comb_sums, comb_sums_plain
+    from aefs_tpu_torch.ops.ringbuf import comb_chunk_size
+
+    c = comb_chunk_size(lags)
+    x, g, ht = _comb_operands(dev, lags, max(side_of) + 1, n, h)
+    before = comb_sums.launches
+    ysum, d_tail = comb_sums(x, g, ht, lags, c, side_of, n_sides, h_static)
+    torch.cuda.synchronize()
+    assert comb_sums.launches == before + 1
+    y_ref, d_ref = comb_sums_plain(x, g, ht, lags, c, side_of, n_sides)
+    assert ysum.shape == y_ref.shape == (n_sides, -(-n // c), c)
+    assert d_tail.shape == d_ref.shape == (3, len(lags), c)
+    assert float((ysum - y_ref).abs().max()) < 1e-5
+    assert float((d_tail - d_ref).abs().max()) < 1e-4
+    return ysum
+
+
+def _chunks_vs_plain(dev, lags, side_of, n, h):
+    from aefs_tpu_torch.ops.kernels.comb import comb_chunks, comb_chunks_plain
+    from aefs_tpu_torch.ops.ringbuf import comb_chunk_size
+
+    c = comb_chunk_size(lags)
+    x, g, ht = _comb_operands(dev, lags, max(side_of) + 1, n, h)
+    before = comb_chunks.launches
+    y, d = comb_chunks(x, g, ht, lags, c, side_of)
+    torch.cuda.synchronize()
+    assert comb_chunks.launches == before + 1
+    y_ref, d_ref = comb_chunks_plain(x, g, ht, lags, c, side_of)
+    assert y.shape == d.shape == y_ref.shape == (-(-n // c), len(lags), c)
+    assert float((y - y_ref).abs().max()) < 1e-5
+    assert float((d - d_ref).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("n", [900, 2000, 2817, 4300], ids=["M1", "M2", "M3", "M4"])
+@pytest.mark.parametrize("h,h_static", [(0.05, 0.05), (0.6, None)], ids=["fir", "scan"])
+def test_comb_sums_few_chunks(dev, n, h, h_static):
+    """K2 at 1-4 chunks of 1408: the tail's leading zero rows and the first
+    steps, where every lag read lands before the signal start."""
+    _sums_vs_plain(dev, LAGS8, REVERB_SIDES, 2, n, h, h_static)
+
+
+@pytest.mark.parametrize("case", [
+    ("uneven-3-5", LAGS8, (0, 0, 0, 1, 1, 1, 1, 1), 2, 20000, 0.05, 0.05),
+    ("h0-one-tap", LAGS8, REVERB_SIDES, 2, 20000, 0.0, 0.0),
+    ("fir-last-0.40", LAGS8, REVERB_SIDES, 2, 20000, 0.40, 0.40),
+    ("scan-0.41", LAGS8, REVERB_SIDES, 2, 20000, 0.41, 0.41),
+    ("short-lags-fir", SHORT8, REVERB_SIDES, 2, 3000, 0.05, 0.05),
+    ("short-lags-scan", SHORT8, REVERB_SIDES, 2, 3000, 0.6, None),
+], ids=lambda case: case[0])
+def test_comb_sums_geometry(dev, case):
+    """K2 at an uneven side map, h = 0 (a one-tap FIR), the last FIR case
+    and the first scan case, and a chunk below 128 that no warp count
+    divides."""
+    _, lags, side_of, n_sides, n, h, h_static = case
+    _sums_vs_plain(dev, lags, side_of, n_sides, n, h, h_static)
+
+
+def test_comb_sums_side_without_combs(dev):
+    """n_sides = 3 with combs on sides 0 and 1 only: row 2 is zeros."""
+    ysum = _sums_vs_plain(dev, LAGS8, REVERB_SIDES, 3, 20000, 0.2, 0.2)
+    assert not bool(ysum[2].any())
+
+
+@pytest.mark.parametrize("case", [
+    ("M1", LAGS8, REVERB_SIDES, 900, 0.3),
+    ("M2", LAGS8, REVERB_SIDES, 2000, 0.3),
+    ("M3", LAGS8, REVERB_SIDES, 2817, 0.3),
+    ("M4", LAGS8, REVERB_SIDES, 4300, 0.3),
+    ("uneven-3-5", LAGS8, (0, 0, 0, 1, 1, 1, 1, 1), 20000, 0.3),
+    ("identity-16", LAGS8 + tuple(l + 7 for l in LAGS8), tuple(range(16)), 20000, 0.3),
+    ("h0", LAGS8, REVERB_SIDES, 20000, 0.0),
+    ("short-lags", SHORT8, tuple(range(8)), 3000, 0.6),
+], ids=lambda case: case[0])
+def test_comb_chunks_geometry(dev, case):
+    """K4 at 1-4 chunks, an uneven side map, 16 combs on the identity map,
+    h = 0 and a chunk of 100."""
+    _, lags, side_of, n, h = case
+    _chunks_vs_plain(dev, lags, side_of, n, h)
+
+
+@pytest.mark.parametrize("c", [1408, 1664, 2176, 5632, 14080],
+                         ids=["2-lanes", "4-lanes", "8-lanes", "16-lanes", "32-lanes"])
+def test_comb_kernels_every_lanes_variant(dev, c):
+    """Each lanes-per-thread variant the launcher picks, at a chunk size
+    that selects it (2 lanes up to 768 threads, then the fewest of 4-32
+    within 512; 32 lanes at 448 threads near the shared-memory limit):
+    K2 with both dampings and K4, over 4 chunks."""
+    lags = tuple(c + 17 + k * c // 10 for k in range(8))  # comb_chunk_size -> c
+    n = 3 * c + 500
+    _sums_vs_plain(dev, lags, REVERB_SIDES, 2, n, 0.05, 0.05)
+    _sums_vs_plain(dev, lags, REVERB_SIDES, 2, n, 0.6, None)
+    _chunks_vs_plain(dev, lags, REVERB_SIDES, n, 0.3)
+
+
+def test_comb_kernels_are_deterministic(dev):
+    """Two launches on the same inputs are bit-equal (no atomics; every
+    power of h from a fixed multiplication order)."""
+    from aefs_tpu_torch.ops.kernels.comb import comb_chunks, comb_sums
+
+    x, g, ht = _comb_operands(dev, LAGS8, 2, 50000, 0.6)
+    for h, h_static in ((0.05, 0.05), (0.6, None)):
+        hs = torch.tensor(h, device=dev)
+        a = comb_sums(x, g, hs, LAGS8, 1408, REVERB_SIDES, 2, h_static)
+        b = comb_sums(x, g, hs, LAGS8, 1408, REVERB_SIDES, 2, h_static)
+        assert all(torch.equal(p, q) for p, q in zip(a, b))
+    a = comb_chunks(x, g, ht, LAGS8, 1408, REVERB_SIDES)
+    b = comb_chunks(x, g, ht, LAGS8, 1408, REVERB_SIDES)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def test_comb_kernels_reject_bad_geometry(dev):
+    """More than 16 combs and a side map outside the rows of x raise
+    before launching; a chunk whose block exceeds shared memory and one
+    that no lanes variant takes return the launch error, which leaves no
+    error behind for the next launch."""
+    from aefs_tpu_torch.ops.kernels.comb import comb_chunks, comb_sums
+
+    x, g, ht = _comb_operands(dev, LAGS8, 2, 5000, 0.3)
+    lags17 = LAGS8 * 2 + (1500,)
+    g17 = torch.full((17,), 0.5, device=dev)
+    with pytest.raises(ValueError):
+        comb_chunks(torch.zeros((17, 5000), device=dev), g17, ht, lags17, 1408, tuple(range(17)))
+    with pytest.raises(ValueError):
+        comb_sums(x, g, ht, LAGS8, 1408, (0, 0, 0, 0, 2, 2, 2, 2), 3)
+    for big in (15000, 17000):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            comb_chunks(torch.zeros((2, 40000), device=dev), g[:2], ht, (big, big + 1), big,
+                        (0, 1))
+    _chunks_vs_plain(dev, LAGS8, REVERB_SIDES, 5000, 0.3)
+
+
 def _chorus_rows(dev, n, seed):
     """Two rows at the chorus's geometry (history 2408) with chorus-law
     distances, plus two rows whose distances cross the ring boundary."""
