@@ -3,18 +3,20 @@ aefs_tpu/models/chorus.py).
 
 The read position n - delay[n] is strictly increasing (the LFO slews the
 delay far slower than one sample per sample), so the tap is a
-feedforward 4-tap Hermite read into hist ++ x: kernel K3
-(``ringbuf.fractional_read_resample``), one launch per call over both
-channels.  The LFO phase carries across blocks as the TwoSum pair
-(models/lfo.py); ``spread`` offsets the right channel's phase in cycles,
-added after the ramp as in the reference.
+feedforward 4-tap Hermite read into hist ++ x.  The LFO phase carries
+across blocks as the TwoSum pair (models/lfo.py); ``spread`` offsets the
+right channel's phase in cycles, added after the ramp as in the reference.
+A block is one call of the block step K3
+(``ops/kernels/resample.py:chorus_step``): LFO, delay law, tap, blend,
+history and phase advance in one launch over both channels on the card,
+its plain eager version on the CPU.
 
 File mode has no separate path: ``process`` over the whole signal is the
 reference's ``process_file`` (same phase ramp on the global sample index,
-same delay law and clips), read by one K3 launch.  The reference's dense
-one-hot tap operator there exists only to avoid TPU gathers, and differs
-from the gather read only in the order of the four-term sum.  mix = 0 is
-an exact passthrough.
+same delay law and clips), one K3 launch.  The reference's dense one-hot
+tap operator there exists only to avoid TPU gathers, and differs from the
+gather read only in the order of the four-term sum.  mix = 0 is an exact
+passthrough.
 """
 
 from __future__ import annotations
@@ -23,9 +25,7 @@ import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
 from aefs_tpu_torch.models.base import EffectModel
-from aefs_tpu_torch.models.lfo import (
-    TWO_PI, f64, fs_tensor, lfo_advance, lfo_ramp, spread_channels)
-from aefs_tpu_torch.ops.ringbuf import fractional_read_resample
+from aefs_tpu_torch.ops.kernels.resample import chorus_step
 
 MAX_BASE_MS = 40.0
 MAX_DEPTH_MS = 10.0
@@ -56,18 +56,4 @@ class Chorus(EffectModel):
         }
 
     def process(self, state, p, x):
-        c, n = x.shape
-        fs = fs_tensor(self.fs, x.device)
-        dph = p["rate_hz"] / fs
-        ph_c = spread_channels(lfo_ramp(state["ph_hi"], state["ph_lo"], dph, n),
-                               p["spread"], c)
-        delay_ms = p["base_ms"] + p["depth_ms"] * f64(torch.sin, TWO_PI * ph_c)
-        ms_per_s = torch.full((), 1000.0, device=x.device)
-        ago = torch.clamp(delay_ms * (fs / ms_per_s), 2.0, float(self.hist_len - 2))
-
-        tap = fractional_read_resample(state["hist"], x, ago)
-        y = (1.0 - p["mix"]) * x + p["mix"] * tap
-
-        new_hist = torch.cat([state["hist"], x], 1)[:, -self.hist_len:]
-        hi, lo = lfo_advance(state["ph_hi"], state["ph_lo"], dph, n)
-        return {"hist": new_hist, "ph_hi": hi, "ph_lo": lo}, y
+        return chorus_step(state, p, x, self.fs)

@@ -30,7 +30,7 @@ from aefs_tpu_torch.core.params import ParamSpec
 from aefs_tpu_torch.models.base import EffectModel
 from aefs_tpu_torch.models.lfo import (
     TWO_PI, f64, fs_tensor, lfo_advance, lfo_ramp, spread_channels)
-from aefs_tpu_torch.models.octaver import _two_sum
+from aefs_tpu_torch.ops.dsphase import _two_sum
 from aefs_tpu_torch.ops.ringbuf import cubic_onehot_matrix, cubic_tap_weights, onehot_matrix
 from aefs_tpu_torch.ops.scan import _matmul
 

@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from aefs_tpu_torch.models.octaver import _two_sum
+from aefs_tpu_torch.ops.dsphase import _two_sum
 
 TWO_PI = 2.0 * math.pi
 

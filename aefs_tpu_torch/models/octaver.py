@@ -2,18 +2,13 @@
 
 Two read taps driven by phasors offset 0.5 apart, Hann crossfade gains,
 4-point Hermite interpolation (reference octaver.py:17-82).  The phasor is
-affine per sample, so a whole block is one parallel tap read: every
-generic block (streaming, and file renders at non-octave ratios) goes
-through the two-tap kernel K1 (``ringbuf.fractional_read_resample2``,
-csrc/resample.cu); whole-octave file renders take the exact closed-form grid
-taps (ops/gridtaps.py).
-
-The phase arithmetic is double-single (hi + lo float32) and relies on
-error-free transforms, so it stays in eager torch: every product and sum
-is its own op and is rounded separately (no FMA contraction).  Divisions
-are by device tensors, never by Python scalars: CUDA rewrites division by
-a host scalar as a reciprocal multiply, which would move the phase by an
-ulp against the CPU.
+affine per sample and a pure function of the absolute sample index, in
+double-single arithmetic (ops/dsphase.py).  Every generic block (streaming,
+and file renders at non-octave ratios) is one call of the block step K1
+(``ops/kernels/resample.py:octaver_step``): phase, both taps, gains, blend
+and the new state in one launch on the card, its plain eager version on the
+CPU.  Whole-octave file renders take the exact closed-form grid taps
+(ops/gridtaps.py).
 """
 
 from __future__ import annotations
@@ -25,128 +20,15 @@ import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
 from aefs_tpu_torch.models.base import EffectModel
-from aefs_tpu_torch.ops.ringbuf import fractional_read_resample2, ring_push
+from aefs_tpu_torch.ops.kernels.resample import octaver_step
+from aefs_tpu_torch.ops.ringbuf import ring_push
 
 _F32 = torch.float32
 _I32 = torch.int32
 
-
-def _two_sum(a, b):
-    """Error-free transform: a + b = s + e exactly (Knuth TwoSum), with the
-    virtual operands a' = s - b', b' = s - a."""
-    s = a + b
-    bp = s - a
-    e = (a - (s - bp)) + (b - bp)
-    return s, e
-
-
-def _split12(v):
-    """Veltkamp split of an f32 into 12-bit-significand halves: products
-    of two halves are exact in f32."""
-    c = v * 4097.0
-    hi = c - (c - v)
-    return hi, v - hi
-
-
-def _two_prod(a, b):
-    """Error-free product: a * b = p + e exactly (Dekker, via _split12)."""
-    p = a * b
-    ah, al = _split12(a)
-    bh, bl = _split12(b)
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    return p, e
-
-
-def _ds_add(ah, al, bh, bl):
-    s, e = _two_sum(ah, bh)
-    return _two_sum(s, e + (al + bl))
-
-
-def _ds_mul(ah, al, bh, bl):
-    p, e = _two_prod(ah, bh)
-    return _two_sum(p, e + (ah * bl + al * bh))
-
-
-def _exp2_coeffs():
-    """Degree-12 Taylor coefficients of 2^r = exp(r ln 2) as (hi, lo) f32
-    pairs of the float64 values (truncation ~2^-52 on |r| <= 0.5)."""
-    out = []
-    for j in range(13):
-        c = math.log(2.0) ** j / math.factorial(j)
-        hi = np.float32(c)
-        out.append((float(hi), float(np.float32(c - float(hi)))))
-    return out
-
-
-_EXP2_C = _exp2_coeffs()
-_INV12_HI = float(np.float32(1.0 / 12.0))
-_INV12_LO = float(np.float32(1.0 / 12.0 - _INV12_HI))
-
 # semi_prev init: outside the legal [-24, 24] range, so the first block
 # always re-anchors (an exact no-op at n_abs = 0).
 _SEMI_SENTINEL = 1.0e9
-
-
-def ds_exp2_div12(s):
-    """Double-single 2^(s/12) for f32 semitones in [-24, 24]: hi + lo
-    matches the float64 ratio to ~2^-43 relative.  Range-reduce
-    y = s/12 = k + r (k = round, |r| <= 0.5), Horner the Taylor series in
-    double-single, scale by the exact 2^k."""
-    p, e = _two_prod(s, torch.full_like(s, _INV12_HI))
-    y_hi, y_lo = _two_sum(p, e + s * _INV12_LO)
-    k = torch.round(y_hi)
-    r_hi, r_lo = _two_sum(y_hi - k, y_lo)  # y_hi - k exact: |diff| <= 0.5
-    th = torch.full_like(s, _EXP2_C[12][0])
-    tl = torch.full_like(s, _EXP2_C[12][1])
-    for j in range(11, -1, -1):
-        th, tl = _ds_mul(th, tl, r_hi, r_lo)
-        th, tl = _ds_add(th, tl, _EXP2_C[j][0], _EXP2_C[j][1])
-    scale = torch.ldexp(torch.ones_like(s), k.to(_I32))  # exact 2^k
-    return th * scale, tl * scale
-
-
-def _stride_levels(step_hi, step_lo):
-    """((4096^l * step) mod 1) for l = 0, 1, 2 as renormalized DS pairs
-    (the *4096 scalings and the mod-1 of an f32 < 2^24 are exact)."""
-    def lift(h, l):
-        rh = h * 4096.0
-        rh = rh - torch.floor(rh)
-        return _two_sum(rh, l * 4096.0)
-
-    r1 = lift(step_hi, step_lo)
-    r2 = lift(*r1)
-    return ((step_hi, step_lo), r1, r2)
-
-
-def _phase_accum(idx, strides, base_hi, base_lo):
-    """Compensated (acc, err) of base + idx*step over base-4096 digits of
-    the int32 index: every hi product has a <= 24-bit significand, exact
-    in f32, and its mod-1 residue is exact."""
-    acc = base_hi + torch.zeros(idx.shape, dtype=_F32, device=idx.device)
-    err = base_lo + torch.zeros(idx.shape, dtype=_F32, device=idx.device)
-    digits = (idx & 4095, (idx >> 12) & 4095, (idx >> 24) & 4095)
-    for j, (rh, rl) in zip(digits, strides):
-        a, b = _split12(rh)
-        jf = j.to(_F32)
-        t_exact = torch.remainder(jf * a, 1.0)  # exact (24-bit product)
-        t_small = jf * b + jf * rl
-        acc, e1 = _two_sum(acc, t_exact)
-        acc, e2 = _two_sum(acc, t_small)
-        err = err + (e1 + e2)
-    return acc, err
-
-
-def _phase_ramp(idx, strides, base_hi, base_lo):
-    """f32 phases mod 1 for an int32 index tensor — one ulp(1) rounding."""
-    acc, err = _phase_accum(idx, strides, base_hi, base_lo)
-    return torch.remainder(torch.remainder(acc, 1.0) + err, 1.0)
-
-
-def _phase_fold(n_abs, strides, base_hi, base_lo):
-    """DS base' = mod(base + n_abs*step, 1): re-anchors the phase origin
-    when the step changes (live semitone glide)."""
-    acc, err = _phase_accum(n_abs, strides, base_hi, base_lo)
-    return _two_sum(torch.remainder(acc, 1.0), err)
 
 
 class Octaver(EffectModel):
@@ -194,60 +76,7 @@ class Octaver(EffectModel):
         }
 
     def process(self, state, p, x):
-        size = self.size
-        n = x.shape[-1]
-        dev = x.device
-        mix = p["mix"]
-        mono = torch.mean(x, 0)  # octaver.py:126-128
-
-        # step = (1 - ratio_hi - ratio_lo) / size in double-single: the
-        # division remainder is recovered with an exact split product.
-        ratio_hi, ratio_lo = ds_exp2_div12(p["semitones"])
-        size_f = torch.full((), float(size), device=dev)
-        d_hi, d_e = _two_sum(torch.ones((), device=dev), -ratio_hi)
-        num_lo = d_e - ratio_lo
-        step_hi = d_hi / size_f
-        a_hi, a_lo = _split12(step_hi)
-        rem = (d_hi - a_hi * size_f) - a_lo * size_f
-        step_lo = (rem + num_lo) / size_f
-
-        # Phase as a pure function of the absolute index (bitwise blocksize
-        # invariance); a step change re-anchors via an exact fold of the
-        # previous step, and the 2^28 re-anchor bounds n_abs far below
-        # int32 overflow.
-        strides = _stride_levels(step_hi, step_lo)
-        refold = (p["semitones"] != state["semi_prev"]) | (state["n_abs"] >= (1 << 28))
-        prev = _stride_levels(state["step_hi"], state["step_lo"])
-        fb_hi, fb_lo = _phase_fold(state["n_abs"], prev, state["base_hi"], state["base_lo"])
-        base_hi = torch.where(refold, fb_hi, state["base_hi"])
-        base_lo = torch.where(refold, fb_lo, state["base_lo"])
-        n0 = torch.where(refold, torch.zeros_like(state["n_abs"]), state["n_abs"])
-
-        idx = n0 + torch.arange(n, dtype=_I32, device=dev)
-        p1 = _phase_ramp(idx, strides, base_hi, base_lo)
-        p2 = torch.remainder(p1 + 0.5, 1.0)
-
-        hist = state["hist"]
-        s1, s2 = fractional_read_resample2(hist, mono, p1 * size, p2 * size)
-
-        two_pi = 2.0 * math.pi
-        g1 = 0.5 * (1.0 - torch.cos(two_pi * p1))  # Hann crossfade (octaver.py:66-67)
-        g2 = 0.5 * (1.0 - torch.cos(two_pi * p2))
-        wet = s1 * g1 + s2 * g2
-
-        new_state = {
-            "hist": ring_push(hist, mono),
-            "n_abs": (n0 + n).to(_I32),
-            "base_hi": base_hi,
-            "base_lo": base_lo,
-            "semi_prev": p["semitones"],
-            "step_hi": step_hi,
-            "step_lo": step_lo,
-        }
-        # Linear dry/wet blend preserving the dry stereo image
-        # (octaver.py:143-150).
-        y = x * (1.0 - mix) + wet[None, :] * mix
-        return new_state, y
+        return octaver_step(state, p, x)
 
     def process_file(self, state, p, x):
         """Whole-file path.  At whole-octave baked ratios the taps are the

@@ -6,9 +6,11 @@ at first use into ONE shared library with a plain C interface
 the sources and flags so an edited source rebuilds), then loaded with
 ctypes.  No PyTorch headers are compiled, so the build takes seconds.
 
-Each kernel module (``resample.py``: K1, K3; ``comb.py``: K2, K4) holds
-the wrappers, their plain versions and one launch counter per wrapper.  A wrapper takes the plain version
-only for CPU tensors; on CUDA tensors it launches the kernel or raises.
+Each kernel module (``resample.py``: K1, K3, the octaver's and the
+chorus's block steps; ``comb.py``: K2, K4) holds the wrappers, their plain
+versions and one launch counter per wrapper.  A wrapper takes the plain
+version only for CPU tensors; on CUDA tensors it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -26,10 +28,10 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "aefs_tpu_torch"
-# -fmad=false: the tap kernel repeats the plain version's Hermite
-# operation order and must not contract a*b+c into FMAs (the two then
-# agree to the ulp); the comb kernel's sums and scans likewise round
-# every product like the eager reference does.
+# -fmad=false: the step kernels repeat the plain versions' double-single
+# phase arithmetic and Hermite operation order and must not contract a*b+c
+# into FMAs (the two then agree bit for bit); the comb kernel's sums and
+# scans likewise round every product like the eager reference does.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -80,10 +82,11 @@ def library():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.aefs_octaver_taps.argtypes = [p, p, p, p, p, p, i, i, p]
-            lib.aefs_octaver_taps.restype = i
-            lib.aefs_fractional_read.argtypes = [p, p, p, p, i, i, i, p]
-            lib.aefs_fractional_read.restype = i
+            ll, f = ctypes.c_longlong, ctypes.c_float
+            lib.aefs_octaver_step.argtypes = [p, ll, i, i, p, i] + [p] * 10
+            lib.aefs_octaver_step.restype = i
+            lib.aefs_chorus_step.argtypes = [p, ll, i, i, p, i, f] + [p] * 9
+            lib.aefs_chorus_step.restype = i
             lib.aefs_comb_sums.argtypes = [
                 p, i, i, p, p, p, i, p, p, i, i, i, i, p, p, p, p]
             lib.aefs_comb_sums.restype = i
@@ -100,8 +103,9 @@ def check(err: int, what: str):
 
 
 def stream_ptr(device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as the int ctypes takes."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current CUDA stream on ``device``, as the int ctypes takes
+    (the raw handle, without building a ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def require_cuda_f32(name, t, shape=None):

@@ -7,12 +7,13 @@ is a block-row ring (one row per block) whose row pointer is an int32
 counter.  Reads at runtime distances are gathers on index tensors, so no
 value ever crosses back to the host inside a block.
 
-The four kernel entries live here with the reference's contracts:
-``fractional_read_resample2`` (both octaver taps, kernel K1),
-``fractional_read_resample`` (one stream's tap per row, kernel K3; the
-chorus), ``comb_bank_file_sums`` (whole-file reverb comb sums, kernel K2)
-and ``comb_bank_file_chunks`` / ``comb_bank_file`` (the comb bank with
-every chunk's outputs, kernel K4); all dispatch through ``ops/kernels``.
+The comb kernels' entries live here with the reference's contracts:
+``comb_bank_file_sums`` (whole-file reverb comb sums, kernel K2) and
+``comb_bank_file_chunks`` / ``comb_bank_file`` (the comb bank with every
+chunk's outputs, kernel K4), both through ``ops/kernels``.  The tap read
+``fractional_read_cubic`` is the plain piece of kernels K1 and K3, which
+the octaver and the chorus call as whole block steps
+(``ops/kernels/resample.py``).
 """
 
 from __future__ import annotations
@@ -272,7 +273,7 @@ def allpass_block(hist, x, a, lag: int):
 
 def cubic_hermite(frac, y0, y1, y2, y3):
     """4-point Hermite interpolation (reference octaver.py:9-15).  The
-    CUDA tap kernel (csrc/resample.cu) repeats this operation order."""
+    step kernels' tap read (csrc/tap_read.cuh) repeats this operation order."""
     c0 = y1
     c1 = 0.5 * (y2 - y0)
     c2 = y0 - 2.5 * y1 + 2.0 * y2 - 0.5 * y3
@@ -345,26 +346,3 @@ def _wrap_patch(ext, s, n, ca, frac, bulk):
     needs_wrap = (ca <= 1) | (ca >= s - 1)
     wrapped = cubic_hermite(frac, wrap_tap(1), wrap_tap(0), wrap_tap(-1), wrap_tap(-2))
     return torch.where(needs_wrap, wrapped, bulk)
-
-
-def fractional_read_resample2(hist, x, ago1, ago2):
-    """Both octaver taps in one kernel launch (kernel K1,
-    ops/kernels/resample.py): returns (s1, s2), each the same read as
-    ``fractional_read_cubic`` on its ``ago`` stream."""
-    from aefs_tpu_torch.ops.kernels.resample import octaver_taps
-
-    return octaver_taps(hist, x, ago1, ago2)
-
-
-def fractional_read_resample(hist, x, ago, tile=None, window=None):
-    """The read of ``fractional_read_cubic`` through kernel K3
-    (ops/kernels/resample.py), one launch for all rows: hist (S,) or
-    (R, S), x and ago (N,) or (R, N).  ``tile`` and ``window`` size the
-    reference's TPU tiles; they are accepted and ignored (K3 reads any
-    block and history length)."""
-    from aefs_tpu_torch.ops.kernels.resample import fractional_read
-
-    if hist.ndim == 1:
-        return fractional_read(hist[None].contiguous(), x[None].contiguous(),
-                               ago[None].contiguous())[0]
-    return fractional_read(hist.contiguous(), x.contiguous(), ago.contiguous())

@@ -6,13 +6,16 @@ Drives the port's main path (aefs_tpu_torch) end to end on the card:
 
 1. probe: a CUDA card is required; prints its name and power limit;
 2. build: compiles the hand-written kernels (csrc/*.cu) from the sources;
-3. K1 (octaver two-tap read) against its plain PyTorch version on the card,
-   at the 256-sample streaming shape and a 4096-sample superblock;
+3. K1 (the octaver's block step) against its plain PyTorch step on the
+   card, bit for bit on every output and state leaf, over runs of blocks of
+   256, 200 and 4096 samples with a semitone change mid-run, and from a
+   state at n_abs = 2^28 - 100 (the re-anchor fires);
 4. K2 (whole-file reverb comb sums) against its plain version on the card,
    at the flagship reverb's lags over the demo file's length, with the
    baked-damping FIR and the traced-damping scan;
-5. K3 (one stream's tap read, the chorus's tap) against its plain version,
-   bit for bit, at 2 x 256 (streaming) and 2 x 892,800 (the demo file);
+5. K3 (the chorus's block step) against its plain step, bit for bit, over
+   2 x 256 blocks with a rate change mid-run, a clamped delay law, and
+   2 x 892,800 (the demo file in one call);
 6. K4 (the comb bank with every chunk's y and damped) through its entry
    ``ringbuf.comb_bank_file_chunks`` at the flagship reverb's lags over the
    demo's length, against its plain version;
@@ -59,10 +62,11 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from __graft_entry__ import FLAGSHIP
 from aefs_tpu_torch.core.config import DEFAULT_PRESETS
 from aefs_tpu_torch.engine.engine import AudioEngine, process_offline
+from aefs_tpu_torch.engine.flagship import FLAGSHIP
 from aefs_tpu_torch.engine.wavio import read_wav_file
+from aefs_tpu_torch.models.octaver import Octaver
 from aefs_tpu_torch.models.reverb import Reverb
 from aefs_tpu_torch.models.spectral import SpectralFilter, db_to_lin
 from aefs_tpu_torch.ops import kernels
@@ -70,7 +74,7 @@ from aefs_tpu_torch.ops.fftops import frame_signal
 from aefs_tpu_torch.ops.kernels.comb import (
     comb_chunks, comb_chunks_plain, comb_sums, comb_sums_plain)
 from aefs_tpu_torch.ops.kernels.resample import (
-    fractional_read, fractional_read_plain, octaver_taps, octaver_taps_plain)
+    chorus_step, chorus_step_plain, octaver_step, octaver_step_plain)
 from aefs_tpu_torch.ops.ringbuf import comb_bank_file_chunks, comb_chunk_size
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -79,13 +83,20 @@ FS = 48000
 BLOCK = 256
 STREAM_BLOCKS = 375  # 2 s at 48 kHz
 BUDGET_MS = 1000.0 * BLOCK / FS  # 5.33 ms per block
-K1_TOL = 2e-6
 K2_SUM_TOL, K2_TAIL_TOL = 1e-5, 1e-4
 K4_Y_TOL, K4_DAMPED_TOL = K2_SUM_TOL, K2_TAIL_TOL
 DBFS_TOL = -90.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-HERMITE_FLOPS = 20  # per tap read: frac, the four coefficients, Horner (K1, K3)
+# float32 operations per output sample (transcendentals count one each).
+# K1 at two channels: the base-4096 phase ramp 75, two distances 2, two
+# Hermite reads 40, two Hann gains 8, wet 3, mono 2, blend 6; plus ~700
+# once per call for the prologue (2^(s/12) in double-single, the step, its
+# levels, the fold).  K3: ramp and spread 4, the delay law and its clamp 7,
+# one Hermite read 20, blend 3, 1 for the sine's argument.
+OCTAVER_STEP_OPS, OCTAVER_PROLOGUE_OPS = 136, 700
+CHORUS_STEP_OPS = 35
+CHORUS_HIST = 2408  # int((40 + 10) * 48000 / 1000) + 8
 # Per comb and sample of the comb recursion: y = x + g r (2), then
 # damped = h d + (1 - h) y (3, with 1 - h formed once) (K2, K4).
 COMB_OPS = 5
@@ -94,8 +105,8 @@ MODULATION_PRESETS = ("Lush Chorus", "Jet Flanger", "Psychedelic Sweep", "Funky 
 LAST_SLICE_PRESETS = ("Clean Noise Removal", "Crunch", "Concert Hall (Convolution)",
                       "Glue Bus", "Master Bus", "Broadcast Voice", "Multiband Master")
 # Every wrapper's launch counter, by the name the kernels' record uses.
-COUNTERS = {"octaver_taps": octaver_taps, "comb_sums": comb_sums,
-            "fractional_read": fractional_read, "comb_chunks": comb_chunks}
+COUNTERS = {"octaver_step": octaver_step, "comb_sums": comb_sums,
+            "chorus_step": chorus_step, "comb_chunks": comb_chunks}
 LAUNCHES = {k: 0 for k in COUNTERS}  # summed over the paths of phases 6-8
 
 
@@ -196,42 +207,78 @@ def build():
     phase("build", seconds=round(time.perf_counter() - t0, 3), library=str(so.relative_to(ROOT)))
 
 
-def check_k1(dev):
-    """K1 at the streaming shape and a 4096-sample superblock, on phase
-    ramps that cross the ring boundary (wrap lanes)."""
-    size = 1920
-    rng = np.random.default_rng(1)
+def compare_runs(got, ref):
+    """(bitwise, max abs difference) of two step runs: every block's output
+    and every leaf of the final state."""
+    (ys, st), (ys_ref, st_ref) = got, ref
+    pairs = list(zip(ys, ys_ref)) + [(st[k], st_ref[k]) for k in st_ref]
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+    return bitwise, err
+
+
+def noise(rng, shape, dev):
+    return torch.from_numpy((0.3 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+
+# (name, N, semitones per block, n_abs set before the second block): a live
+# semitone change (re-anchor by fold), blocks off the 128 grid, a 4096-sample
+# superblock, and the 2^28 re-anchor from a phase just under 1 (wrap lanes).
+K1_RUNS = (
+    ("stream-256-glide", BLOCK, (-12.0,) * 5 + (-5.0,) * 4, None),
+    ("block-200", 200, (7.0,) * 5 + (7.5,) * 3, None),
+    ("superblock-4096", 4096, (-12.0,) * 2 + (12.0,) * 2, None),
+    ("reanchor-2^28", BLOCK, (-12.0,) * 4, (1 << 28) - 100),
+)
+
+
+def octaver_run(step, dev, n, semis, n_abs_at, seed):
+    """Blocks of noise through an octaver step from a noise ring (mix 0.4)."""
+    rng = np.random.default_rng(seed)
+    st = Octaver(FS, n, device=dev).init_state()
+    st["hist"] = noise(rng, st["hist"].shape, dev)
+    mix, ys = torch.tensor(0.4, device=dev), []
+    for b, semi in enumerate(semis):
+        if b == 1 and n_abs_at is not None:
+            st = {**st, "n_abs": torch.tensor(n_abs_at, dtype=torch.int32, device=dev),
+                  "base_hi": torch.tensor(0.9999, device=dev)}
+        p = {"semitones": torch.tensor(semi, device=dev), "mix": mix}
+        st, y = step(st, p, noise(rng, (2, n), dev))
+        ys.append(y)
+    return ys, st
+
+
+def check_k1(dev, n_file):
+    """K1 against its plain step over the runs of K1_RUNS and one +7 st
+    call over the demo file's length (the file path's grid of tiles), bit
+    for bit; times at the streaming shape (ring 1920, 2 x 256)."""
     worst = 0.0
-    for n in (BLOCK, 4096):
-        for step_scale in (-0.94, -0.5, 0.3, 0.9):
-            hist = torch.from_numpy((0.3 * rng.standard_normal(size)).astype(np.float32)).to(dev)
-            x = torch.from_numpy((0.3 * rng.standard_normal(n)).astype(np.float32)).to(dev)
-            p0 = 0.995 if step_scale > 0 else 0.005
-            p1 = np.mod(p0 + np.arange(n) * (step_scale / size), 1.0).astype(np.float32)
-            p2 = np.mod(p1 + np.float32(0.5), 1.0).astype(np.float32)
-            ago1 = torch.from_numpy(p1 * size).to(dev)
-            ago2 = torch.from_numpy(p2 * size).to(dev)
-            got = octaver_taps(hist, x, ago1, ago2)
-            ref = octaver_taps_plain(hist, x, ago1, ago2)
-            torch.cuda.synchronize()
-            err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-            if err > K1_TOL:
-                raise AssertionError(f"K1 n={n} step={step_scale}: max abs {err} > {K1_TOL}")
-            worst = max(worst, err)
-    # Times at the streaming shape (the last n=256 inputs rebuilt).
-    hist = torch.from_numpy((0.3 * rng.standard_normal(size)).astype(np.float32)).to(dev)
-    x = torch.from_numpy((0.3 * rng.standard_normal(BLOCK)).astype(np.float32)).to(dev)
-    p1 = np.mod(0.005 - np.arange(BLOCK) * (0.5 / size), 1.0).astype(np.float32)
-    ago1 = torch.from_numpy(p1 * size).to(dev)
-    ago2 = torch.from_numpy(np.mod(p1 + np.float32(0.5), 1.0).astype(np.float32) * size).to(dev)
-    ms = cuda_ms(lambda: octaver_taps(hist, x, ago1, ago2), 2000)
-    plain_ms = cuda_ms(lambda: octaver_taps_plain(hist, x, ago1, ago2), 200)
-    dev_ms = device_ms(lambda: octaver_taps(hist, x, ago1, ago2), ("octaver_taps_kernel",), 200)
-    # Reads hist, x, ago1, ago2; writes both taps.
-    bnd = bound(4 * (size + 3 * BLOCK) + 4 * 2 * BLOCK, HERMITE_FLOPS * 2 * BLOCK)
-    phase("k1_octaver_taps", max_abs_err=worst, tol=K1_TOL, shape=[size, BLOCK],
+    runs = K1_RUNS + (("file-plus7", n_file, (7.0,), None),)
+    for i, (name, n, semis, n_abs_at) in enumerate(runs):
+        got = octaver_run(octaver_step, dev, n, semis, n_abs_at, seed=10 + i)
+        ref = octaver_run(octaver_step_plain, dev, n, semis, n_abs_at, seed=10 + i)
+        torch.cuda.synchronize()
+        same, err = compare_runs(got, ref)
+        phase("k1_octaver_step_run", run=name, n=n, blocks=len(semis), bitwise=same,
+              max_abs_err=err)
+        if not same:
+            raise AssertionError(f"K1 {name}: not bitwise equal to the plain step (max abs {err})")
+        worst = max(worst, err)
+    rng = np.random.default_rng(1)
+    st = Octaver(FS, BLOCK, device=dev).init_state()
+    size = st["hist"].shape[0]
+    st["hist"] = noise(rng, size, dev)
+    p = {"semitones": torch.tensor(-12.0, device=dev), "mix": torch.tensor(0.4, device=dev)}
+    x = noise(rng, (2, BLOCK), dev)
+    ms = cuda_ms(lambda: octaver_step(st, p, x), 2000)
+    plain_ms = cuda_ms(lambda: octaver_step_plain(st, p, x), 200)
+    dev_ms = device_ms(lambda: octaver_step(st, p, x), ("octaver_step_kernel",), 200)
+    # Reads x, the ring and 8 scalars; writes y, the ring and 6 scalars.
+    bnd = bound(4 * (2 * BLOCK + size + 8) + 4 * (2 * BLOCK + size + 6),
+                OCTAVER_STEP_OPS * BLOCK + OCTAVER_PROLOGUE_OPS)
+    phase("k1_octaver_step", max_abs_err=worst, bitwise=True, shape=[2, BLOCK], ring=size,
           ms=ms, device_ms=dev_ms, plain_ms=plain_ms, **bnd)
-    return record(worst, ms, dev_ms, plain_ms, bnd)
+    return record(worst, ms, dev_ms, plain_ms, bnd, bitwise=True)
 
 
 def check_k2(dev, demo):
@@ -275,33 +322,57 @@ def check_k2(dev, demo):
     return record(worst, ms, dev_ms, plain_ms, bnd, us_per_step=1000.0 * ms / m)
 
 
+def chorus_run(step, dev, n, rates, seed, base_ms=14.0, depth_ms=4.0):
+    """Blocks of noise through a chorus step at the chorus's geometry
+    (history 2408, two channels, spread 0.25, mix 0.5), one rate per block."""
+    rng = np.random.default_rng(seed)
+    st = {"hist": noise(rng, (2, CHORUS_HIST), dev), "ph_hi": torch.tensor(0.13, device=dev),
+          "ph_lo": torch.tensor(0.0, device=dev)}
+    fixed = {k: torch.tensor(v, device=dev) for k, v in
+             (("depth_ms", depth_ms), ("base_ms", base_ms), ("mix", 0.5), ("spread", 0.25))}
+    ys = []
+    for rate in rates:
+        st, y = step(st, {**fixed, "rate_hz": torch.tensor(rate, device=dev)},
+                     noise(rng, (2, n), dev), FS)
+        ys.append(y)
+    return ys, st
+
+
 def check_k3(dev, n_file):
-    """K3 at the chorus's geometry (history 2408, two channels) with
-    chorus-law distances: 2 x 256 (a streaming block) and 2 x n_file (the
-    demo file), bit for bit against the plain gather."""
-    rng = np.random.default_rng(3)
+    """K3 against its plain step, bit for bit: 2 x 256 blocks with a rate
+    change, a delay law the clamp cuts (base 1 ms, depth 10 ms), and the demo
+    file's length in one call; times at 2 x 256 and 2 x n_file."""
+    runs = (("stream-2x256-rate-change", BLOCK, (0.6,) * 4 + (4.0,) * 4, 14.0, 4.0),
+            ("stream-2x256-clamped", BLOCK, (2.0,) * 6, 1.0, 10.0),
+            ("file-2x%d" % n_file, n_file, (0.6,), 14.0, 4.0))
+    worst = 0.0
+    for i, (name, n, rates, base_ms, depth_ms) in enumerate(runs):
+        got = chorus_run(chorus_step, dev, n, rates, 20 + i, base_ms, depth_ms)
+        ref = chorus_run(chorus_step_plain, dev, n, rates, 20 + i, base_ms, depth_ms)
+        torch.cuda.synchronize()
+        same, err = compare_runs(got, ref)
+        phase("k3_chorus_step_run", run=name, n=n, blocks=len(rates), bitwise=same,
+              max_abs_err=err)
+        if not same:
+            raise AssertionError(f"K3 {name}: not bitwise equal to the plain step (max abs {err})")
+        worst = max(worst, err)
     res = {}
     for n, reps, plain_reps in ((BLOCK, 2000, 200), (n_file, 20, 5)):
-        hist = torch.from_numpy((0.3 * rng.standard_normal((2, 2408))).astype(np.float32)).to(dev)
-        x = torch.from_numpy((0.3 * rng.standard_normal((2, n))).astype(np.float32)).to(dev)
-        ph = 0.13 + np.arange(n) * (0.6 / FS) + 0.25 * np.arange(2)[:, None]
-        ago = torch.from_numpy(np.clip((14.0 + 4.0 * np.sin(2 * np.pi * ph)) * 48.0, 2.0, 2406.0)
-                               .astype(np.float32)).to(dev)
-        got = fractional_read(hist, x, ago)
-        ref = fractional_read_plain(hist, x, ago)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        if not torch.equal(got, ref):
-            raise AssertionError(f"K3 2x{n}: not bitwise equal to plain (max abs {err})")
-        ms = cuda_ms(lambda: fractional_read(hist, x, ago), reps)
-        plain_ms = cuda_ms(lambda: fractional_read_plain(hist, x, ago), plain_reps)
-        dev_ms = device_ms(lambda: fractional_read(hist, x, ago), ("fractional_read_kernel",),
+        rng = np.random.default_rng(3)
+        st = {"hist": noise(rng, (2, CHORUS_HIST), dev), "ph_hi": torch.tensor(0.13, device=dev),
+              "ph_lo": torch.tensor(0.0, device=dev)}
+        p = {k: torch.tensor(v, device=dev) for k, v in (("rate_hz", 0.6), ("depth_ms", 4.0),
+             ("base_ms", 14.0), ("mix", 0.5), ("spread", 0.25))}
+        x = noise(rng, (2, n), dev)
+        ms = cuda_ms(lambda: chorus_step(st, p, x, FS), reps)
+        plain_ms = cuda_ms(lambda: chorus_step_plain(st, p, x, FS), plain_reps)
+        dev_ms = device_ms(lambda: chorus_step(st, p, x, FS), ("chorus_step_kernel",),
                            min(reps, 200))
-        # Reads hist, x, ago; writes one tap per (row, sample).
-        bnd = bound(4 * (hist.numel() + 2 * x.numel()) + 4 * x.numel(),
-                    HERMITE_FLOPS * x.numel())
-        res[n] = record(err, ms, dev_ms, plain_ms, bnd)
-        phase("k3_fractional_read", shape=[2, n], hist=2408, bitwise=True, **res[n],
+        # Reads x, the history and 7 scalars; writes y, the history and 2.
+        bnd = bound(4 * (x.numel() + 2 * CHORUS_HIST + 7) + 4 * (x.numel() + 2 * CHORUS_HIST + 2),
+                    CHORUS_STEP_OPS * x.numel())
+        res[n] = record(worst, ms, dev_ms, plain_ms, bnd, bitwise=True)
+        phase("k3_chorus_step", shape=[2, n], hist=CHORUS_HIST, **res[n],
               bytes=bnd["bytes"], flops=bnd["flops"])
     return res[BLOCK]
 
@@ -430,7 +501,7 @@ def main():
     demo, fs = read_wav_file(str(DEMO))
     if fs != FS or demo.ndim != 2 or demo.shape[1] != 2:
         raise AssertionError(f"unexpected demo file: {demo.shape} @ {fs}")
-    k1 = check_k1(dev)
+    k1 = check_k1(dev, demo.shape[0])
     k2 = check_k2(dev, demo)
     k3 = check_k3(dev, demo.shape[0])
     k4 = check_k4(dev, demo)  # K4's own path: its entry, from a zeroed counter
@@ -439,7 +510,7 @@ def main():
     file_mode("flagship", FLAGSHIP, demo, fs, need=("comb_sums",))
     file_mode("Rain Delay", DEFAULT_PRESETS["Rain Delay"], demo, fs, need=("comb_sums",))
     for preset in MODULATION_PRESETS:
-        need = ("fractional_read", "comb_sums") if preset == "Lush Chorus" else ()
+        need = ("chorus_step", "comb_sums") if preset == "Lush Chorus" else ()
         file_mode(preset, DEFAULT_PRESETS[preset], demo, fs, need=need)
     for preset in LAST_SLICE_PRESETS:
         file_mode(preset, DEFAULT_PRESETS[preset], demo, fs)
@@ -448,20 +519,20 @@ def main():
     # demo's bins split about evenly and far more sit near the threshold.
     for threshold_db in (DEFAULT_PRESETS["Clean Noise Removal"][0]["params"]["threshold_db"], -20):
         spectral_mask_flips(mono, threshold_db)
-    streaming("flagship", FLAGSHIP, mono, "octaver_taps")
-    streaming("Lush Chorus", DEFAULT_PRESETS["Lush Chorus"], mono, "fractional_read")
+    streaming("flagship", FLAGSHIP, mono, "octaver_step")
+    streaming("Lush Chorus", DEFAULT_PRESETS["Lush Chorus"], mono, "chorus_step")
     for preset in ("Concert Hall (Convolution)", "Multiband Master"):
         streaming(preset, DEFAULT_PRESETS[preset], mono)
 
     print(json.dumps({"kernels": [
-        {"name": "octaver_taps", "route": "cuda", "source": "aefs_tpu_torch/csrc/resample.cu",
-         "replaces": "aefs_tpu/ops/pallas/resample.py:133", "launches": LAUNCHES["octaver_taps"],
+        {"name": "octaver_step", "route": "cuda", "source": "aefs_tpu_torch/csrc/resample.cu",
+         "replaces": "aefs_tpu/ops/pallas/resample.py:133", "launches": LAUNCHES["octaver_step"],
          **k1},
         {"name": "comb_sums", "route": "cuda", "source": "aefs_tpu_torch/csrc/comb.cu",
          "replaces": "aefs_tpu/ops/pallas/comb.py:145", "launches": LAUNCHES["comb_sums"], **k2},
-        {"name": "fractional_read", "route": "cuda", "source": "aefs_tpu_torch/csrc/resample.cu",
+        {"name": "chorus_step", "route": "cuda", "source": "aefs_tpu_torch/csrc/resample.cu",
          "replaces": "aefs_tpu/ops/pallas/resample.py:64",
-         "launches": LAUNCHES["fractional_read"], **k3},
+         "launches": LAUNCHES["chorus_step"], **k3},
         {"name": "comb_chunks", "route": "cuda", "source": "aefs_tpu_torch/csrc/comb.cu",
          "replaces": "aefs_tpu/ops/pallas/comb.py:62", "launches": LAUNCHES["comb_chunks"], **k4},
     ]}), flush=True)

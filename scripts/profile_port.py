@@ -2,7 +2,7 @@
 
     python3 scripts/profile_port.py [--preset NAME] [--blocks 40] [--out OUT.json]
 
-Profiles the flagship chain (``__graft_entry__.FLAGSHIP``), or the factory
+Profiles the flagship chain (``aefs_tpu_torch.engine.flagship``), or the factory
 preset ``--preset`` names, of ``aefs_tpu_torch`` two ways, on the card,
 under ``torch.profiler``:
 
@@ -52,9 +52,9 @@ from torch.profiler import ProfilerActivity, profile, record_function
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from __graft_entry__ import FLAGSHIP  # noqa: E402
 from aefs_tpu_torch.core.config import DEFAULT_PRESETS  # noqa: E402
 from aefs_tpu_torch.engine.engine import AudioEngine, process_offline  # noqa: E402
+from aefs_tpu_torch.engine.flagship import FLAGSHIP  # noqa: E402
 from aefs_tpu_torch.engine.wavio import read_wav_file  # noqa: E402
 from aefs_tpu_torch.models import EFFECT_REGISTRY, ParallelChains  # noqa: E402
 

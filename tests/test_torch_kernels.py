@@ -22,56 +22,113 @@ def dev():
     return torch.device("cuda")
 
 
-def _ramps(size, n, step_scale, p0, rng):
-    hist = (0.3 * rng.standard_normal(size)).astype(np.float32)
-    x = (0.3 * rng.standard_normal(n)).astype(np.float32)
-    p1 = np.mod(p0 + np.arange(n) * (step_scale / size), 1.0).astype(np.float32)
-    p2 = np.mod(p1 + 0.5, 1.0).astype(np.float32)
-    return hist, x, (p1 * size).astype(np.float32), (p2 * size).astype(np.float32)
+def _noise(rng, shape, dev):
+    return torch.from_numpy((0.3 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+
+def _octaver_run(step, dev, n, semis, seed, **state_at_1):
+    """Blocks of noise through an octaver step from a noise ring (mix 0.4);
+    ``state_at_1`` overrides state leaves before the second block.  Returns
+    (outputs, final state, launches of the kernel counted meanwhile)."""
+    from aefs_tpu_torch.models.octaver import Octaver
+    from aefs_tpu_torch.ops.kernels.resample import octaver_step
+
+    rng = np.random.default_rng(seed)
+    st = Octaver(48000, n, device=dev).init_state()
+    st["hist"] = _noise(rng, st["hist"].shape, dev)
+    mix, ys = torch.tensor(0.4, device=dev), []
+    before = octaver_step.launches
+    for b, semi in enumerate(semis):
+        if b == 1:
+            st = {**st, **{k: torch.tensor(v, dtype=st[k].dtype, device=dev)
+                           for k, v in state_at_1.items()}}
+        st, y = step(st, {"semitones": torch.tensor(semi, device=dev), "mix": mix},
+                     _noise(rng, (2, n), dev))
+        ys.append(y)
+    torch.cuda.synchronize()
+    return ys, st, octaver_step.launches - before
+
+
+def _assert_runs_bitwise(got, ref):
+    """Every block's output and every final state leaf bit-equal (keys,
+    shapes and dtypes of the state tree included)."""
+    ys, st, _ = got
+    ys_ref, st_ref, _ = ref
+    assert st.keys() == st_ref.keys()
+    for a, b in zip(ys, ys_ref):
+        assert a.shape == b.shape and torch.equal(a, b), float((a - b).abs().max())
+    for k in st_ref:
+        assert st[k].shape == st_ref[k].shape and st[k].dtype == st_ref[k].dtype, k
+        assert torch.equal(st[k], st_ref[k]), k
+
+
+OCTAVER_GLIDES = {
+    "steady-12": (-12.0,) * 6,
+    "glide-12-to-5": (-12.0,) * 3 + (-5.0,) * 3,
+    "plus7": (7.0,) * 6,
+    "extremes": (24.0,) * 3 + (-24.0,) * 3,
+}
 
 
 @pytest.mark.parametrize("n", [256, 4096])
-@pytest.mark.parametrize("step_scale", [-0.94, -0.5, 0.3, 0.9])
-def test_octaver_taps_kernel_matches_plain(dev, n, step_scale):
-    from aefs_tpu_torch.ops.kernels.resample import octaver_taps, octaver_taps_plain
+@pytest.mark.parametrize("glide", sorted(OCTAVER_GLIDES))
+def test_octaver_step_kernel_matches_plain(dev, n, glide):
+    """K1 against its plain step over six blocks, bit for bit, one launch
+    per block; a semitone change re-anchors by folding the previous step."""
+    from aefs_tpu_torch.ops.kernels.resample import octaver_step, octaver_step_plain
 
-    rng = np.random.default_rng(7)
-    args = [torch.from_numpy(a).to(dev) for a in _ramps(1920, n, step_scale, 0.37, rng)]
-    before = octaver_taps.launches
-    s1, s2 = octaver_taps(*args)
-    torch.cuda.synchronize()
-    assert octaver_taps.launches == before + 1
-    r1, r2 = octaver_taps_plain(*args)
-    for got, ref in ((s1, r1), (s2, r2)):
-        assert float((got - ref).abs().max()) <= 2e-6
+    semis = OCTAVER_GLIDES[glide]
+    got = _octaver_run(octaver_step, dev, n, semis, seed=7)
+    ref = _octaver_run(octaver_step_plain, dev, n, semis, seed=7)
+    assert got[2] == len(semis) and ref[2] == 0
+    _assert_runs_bitwise(got, ref)
 
 
-def test_octaver_taps_wrap_lanes(dev):
-    """Distances within one sample of the ring boundary (the wrap lanes)."""
-    from aefs_tpu_torch.ops.kernels.resample import octaver_taps, octaver_taps_plain
+def test_octaver_step_wrap_lanes(dev):
+    """Phases within a sample of the ring boundary (the wrap lanes): a
+    half-semitone step from phases just under 1 and just over 0."""
+    from aefs_tpu_torch.ops.kernels.resample import octaver_step, octaver_step_plain
 
-    size, n = 1920, 256
-    rng = np.random.default_rng(8)
-    hist = torch.from_numpy((0.3 * rng.standard_normal(size)).astype(np.float32)).to(dev)
-    x = torch.from_numpy((0.3 * rng.standard_normal(n)).astype(np.float32)).to(dev)
-    edge = np.concatenate([np.linspace(0.0, 2.5, n // 2),
-                           np.linspace(size - 2.5, size - 1e-3, n // 2)]).astype(np.float32)
-    ago1 = torch.from_numpy(edge).to(dev)
-    ago2 = torch.from_numpy(edge[::-1].copy()).to(dev)
-    s1, s2 = octaver_taps(hist, x, ago1, ago2)
-    r1, r2 = octaver_taps_plain(hist, x, ago1, ago2)
-    assert float((s1 - r1).abs().max()) <= 2e-6
-    assert float((s2 - r2).abs().max()) <= 2e-6
+    for base in (0.9995, 0.0003):
+        got = _octaver_run(octaver_step, dev, 256, (0.5,) * 3, 8, base_hi=base)
+        ref = _octaver_run(octaver_step_plain, dev, 256, (0.5,) * 3, 8, base_hi=base)
+        _assert_runs_bitwise(got, ref)
 
 
-def test_octaver_taps_rejects_bad_operands(dev):
-    from aefs_tpu_torch.ops.kernels.resample import octaver_taps
+@pytest.mark.parametrize("n", [200, 256])
+def test_octaver_step_reanchor_at_2_28(dev, n):
+    """From n_abs = 2^28 - 100 the third block re-anchors (n_abs >= 2^28),
+    bit for bit with the plain step; blocks of 200 are off the 128 grid."""
+    from aefs_tpu_torch.ops.kernels.resample import octaver_step, octaver_step_plain
 
-    z = torch.zeros(256, device=dev)
-    with pytest.raises(ValueError):
-        octaver_taps(torch.zeros(1920, device=dev, dtype=torch.float64), z, z, z)
-    with pytest.raises(ValueError):
-        octaver_taps(torch.zeros(1920, device=dev), z, z, torch.zeros(128, device=dev))
+    at = {"n_abs": (1 << 28) - 100, "base_hi": 0.37}
+    got = _octaver_run(octaver_step, dev, n, (-12.0,) * 4, 9, **at)
+    ref = _octaver_run(octaver_step_plain, dev, n, (-12.0,) * 4, 9, **at)
+    assert int(got[1]["n_abs"]) == 2 * n
+    _assert_runs_bitwise(got, ref)
+
+
+def test_octaver_step_rejects_bad_operands(dev):
+    from aefs_tpu_torch.models.octaver import Octaver
+    from aefs_tpu_torch.ops.kernels.resample import octaver_step
+
+    st = Octaver(48000, 256, device=dev).init_state()
+    p = {"semitones": torch.tensor(-12.0, device=dev), "mix": torch.tensor(0.4, device=dev)}
+    x = torch.zeros((2, 256), device=dev)
+    bad = [
+        ({**st, "hist": st["hist"].double()}, p, x),
+        ({**st, "n_abs": st["n_abs"].float()}, p, x),
+        ({**st, "base_hi": st["base_hi"].cpu()}, p, x),
+        (st, {**p, "mix": torch.full((2,), 0.4, device=dev)}, x),
+        (st, p, torch.zeros((3, 256), device=dev)),
+        (st, p, x.double()),
+        (st, p, torch.zeros(256, device=dev)),
+    ]
+    before = octaver_step.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            octaver_step(*args)
+    assert octaver_step.launches == before
 
 
 @pytest.mark.parametrize("fs,blocksize,fast", [(16000, 4096, True), (48000, 200, False)],
@@ -83,7 +140,7 @@ def test_octaver_launches_k1_at_any_geometry(dev, fs, blocksize, fast):
     renders what the CPU port renders."""
     from aefs_tpu_torch.core.chain import build_chain
     from aefs_tpu_torch.core.fileopts import file_static_overrides
-    from aefs_tpu_torch.ops.kernels.resample import octaver_taps
+    from aefs_tpu_torch.ops.kernels.resample import octaver_step
 
     cfg = [{"effect_id": "o", "type": "octaver", "params": {"semitones": 7, "mix": 0.5}}]
     blocks = 3 if fast else 8
@@ -93,9 +150,9 @@ def test_octaver_launches_k1_at_any_geometry(dev, fs, blocksize, fast):
         statics = file_static_overrides(cfg) if fast else None
         chain, state, tmap = build_chain(cfg, fs, blocksize, channels_in=2,
                                          static_overrides=statics, device=d)
-        before = octaver_taps.launches
+        before = octaver_step.launches
         _, outs[d] = chain.process_array(state, chain.targets(tmap), x, fast=fast)
-        launched[d] = octaver_taps.launches - before
+        launched[d] = octaver_step.launches - before
     assert launched == {"cuda": 1 if fast else blocks, "cpu": 0}
     err = float(np.max(np.abs(outs["cuda"].astype(np.float64) - outs["cpu"])))
     assert err == 0.0 or 20.0 * np.log10(err) <= -90.0, err
@@ -268,74 +325,113 @@ def test_comb_kernels_reject_bad_geometry(dev):
     _chunks_vs_plain(dev, LAGS8, REVERB_SIDES, 5000, 0.3)
 
 
-def _chorus_rows(dev, n, seed):
-    """Two rows at the chorus's geometry (history 2408) with chorus-law
-    distances, plus two rows whose distances cross the ring boundary."""
+def _chorus_run(step, dev, n, rates, seed, base_ms=14.0, depth_ms=4.0):
+    """Blocks of noise through a chorus step at the chorus's geometry
+    (history 2408, two channels, spread 0.25, mix 0.5), one rate per block.
+    Returns (outputs, final state, kernel launches counted meanwhile)."""
+    from aefs_tpu_torch.ops.kernels.resample import chorus_step
+
     rng = np.random.default_rng(seed)
-    hist = (0.3 * rng.standard_normal((2, 2408))).astype(np.float32)
-    x = (0.3 * rng.standard_normal((2, n))).astype(np.float32)
-    ph = 0.13 + np.arange(n) * (0.6 / 48000.0) + 0.25 * np.arange(2)[:, None]
-    ago = np.clip((14.0 + 4.0 * np.sin(2 * np.pi * ph)) * 48.0, 2.0, 2406.0).astype(np.float32)
-    return [torch.from_numpy(a).to(dev) for a in (hist, x, ago)]
-
-
-@pytest.mark.parametrize("n", [256, 892800])
-def test_fractional_read_kernel_matches_plain_bitwise(dev, n):
-    """K3 against its plain version, bit for bit, at the chorus's streaming
-    block and at the demo file's length (2 x 892,800 outputs)."""
-    from aefs_tpu_torch.ops.kernels.resample import fractional_read, fractional_read_plain
-
-    args = _chorus_rows(dev, n, seed=n)
-    before = fractional_read.launches
-    got = fractional_read(*args)
+    st = {"hist": _noise(rng, (2, 2408), dev), "ph_hi": torch.tensor(0.13, device=dev),
+          "ph_lo": torch.tensor(0.0, device=dev)}
+    fixed = {k: torch.tensor(v, device=dev) for k, v in
+             (("depth_ms", depth_ms), ("base_ms", base_ms), ("mix", 0.5), ("spread", 0.25))}
+    ys, before = [], chorus_step.launches
+    for rate in rates:
+        st, y = step(st, {**fixed, "rate_hz": torch.tensor(rate, device=dev)},
+                     _noise(rng, (2, n), dev), 48000)
+        ys.append(y)
     torch.cuda.synchronize()
-    assert fractional_read.launches == before + 1
-    assert torch.equal(got, fractional_read_plain(*args))
+    return ys, st, chorus_step.launches - before
+
+
+@pytest.mark.parametrize("n,rates", [(256, (0.6,) * 3 + (4.0,) * 3), (892800, (0.6,))],
+                         ids=["2x256-rate-change", "2x892800"])
+def test_fractional_read_kernel_matches_plain_bitwise(dev, n, rates):
+    """K3 against its plain step, bit for bit, one launch per block: at the
+    chorus's streaming block with a rate change, and at the demo file's
+    length (2 x 892,800 outputs) in one call."""
+    from aefs_tpu_torch.ops.kernels.resample import chorus_step, chorus_step_plain
+
+    got = _chorus_run(chorus_step, dev, n, rates, seed=n)
+    ref = _chorus_run(chorus_step_plain, dev, n, rates, seed=n)
+    assert got[2] == len(rates) and ref[2] == 0
+    _assert_runs_bitwise(got, ref)
 
 
 def test_fractional_read_kernel_wrap_lanes_bitwise(dev):
-    from aefs_tpu_torch.ops.kernels.resample import fractional_read, fractional_read_plain
+    """The chorus's delay law where the clamp cuts it (base 1 ms, depth
+    10 ms: distances held at 2 samples, the nearest the reads come to the
+    ring boundary), bit for bit."""
+    from aefs_tpu_torch.ops.kernels.resample import chorus_step, chorus_step_plain
 
-    size, n = 1920, 256
-    rng = np.random.default_rng(10)
-    hist = torch.from_numpy((0.3 * rng.standard_normal((2, size))).astype(np.float32)).to(dev)
-    x = torch.from_numpy((0.3 * rng.standard_normal((2, n))).astype(np.float32)).to(dev)
-    edge = np.concatenate([np.linspace(0.0, 2.5, n // 2),
-                           np.linspace(size - 2.5, size - 1e-3, n // 2)]).astype(np.float32)
-    ago = torch.from_numpy(np.stack([edge, edge[::-1].copy()])).to(dev)
-    assert torch.equal(fractional_read(hist, x, ago), fractional_read_plain(hist, x, ago))
+    got = _chorus_run(chorus_step, dev, 256, (2.0,) * 6, 10, base_ms=1.0, depth_ms=10.0)
+    ref = _chorus_run(chorus_step_plain, dev, 256, (2.0,) * 6, 10, base_ms=1.0, depth_ms=10.0)
+    _assert_runs_bitwise(got, ref)
 
 
 def test_fractional_read_rejects_bad_operands(dev):
-    from aefs_tpu_torch.ops.kernels.resample import fractional_read
+    from aefs_tpu_torch.ops.kernels.resample import chorus_step
 
-    hist, x, ago = _chorus_rows(dev, 256, seed=1)
-    with pytest.raises(ValueError):
-        fractional_read(hist, x, ago[:, :128])
-    with pytest.raises(ValueError):
-        fractional_read(hist, x.T.contiguous().T, ago)  # not contiguous
-    with pytest.raises(ValueError):
-        fractional_read(hist.double(), x, ago)
+    st = {"hist": torch.zeros((2, 2408), device=dev), "ph_hi": torch.tensor(0.1, device=dev),
+          "ph_lo": torch.tensor(0.0, device=dev)}
+    p = {k: torch.tensor(v, device=dev) for k, v in (("rate_hz", 0.6), ("depth_ms", 4.0),
+         ("base_ms", 14.0), ("mix", 0.5), ("spread", 0.25))}
+    x = torch.zeros((2, 256), device=dev)
+    bad = [
+        ({**st, "hist": st["hist"][:1]}, p, x),
+        ({**st, "hist": st["hist"].T.contiguous().T}, p, x),  # not contiguous
+        ({**st, "hist": st["hist"].double()}, p, x),
+        ({**st, "ph_lo": st["ph_lo"].double()}, p, x),
+        (st, {**p, "rate_hz": p["rate_hz"].cpu()}, x),
+        (st, p, x.double()),
+    ]
+    before = chorus_step.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            chorus_step(*args, 48000)
+    assert chorus_step.launches == before
 
 
 def test_chorus_streaming_step_launches_k3_once_per_block(dev):
-    """The chorus reads through K3 on the card: one launch per block (both
-    channels), never the plain gather, and renders what the CPU renders."""
+    """The chorus runs its block step K3 on the card: one launch per block
+    (both channels), never the plain step, and renders what the CPU renders."""
     from aefs_tpu_torch.core.chain import build_chain
     from aefs_tpu_torch.core.config import DEFAULT_PRESETS
-    from aefs_tpu_torch.ops.kernels.resample import fractional_read
+    from aefs_tpu_torch.ops.kernels.resample import chorus_step
 
     cfg = DEFAULT_PRESETS["Lush Chorus"]
     x = (0.25 * np.random.default_rng(11).standard_normal((12 * 256, 1))).astype(np.float32)
     outs, launched = {}, {}
     for d in ("cuda", "cpu"):
         chain, state, tmap = build_chain(cfg, 48000, 256, channels_in=1, device=d)
-        before = fractional_read.launches
+        before = chorus_step.launches
         _, outs[d] = chain.process_array(state, chain.targets(tmap), x)
-        launched[d] = fractional_read.launches - before
+        launched[d] = chorus_step.launches - before
     assert launched == {"cuda": 12, "cpu": 0}
     err = float(np.max(np.abs(outs["cuda"].astype(np.float64) - outs["cpu"])))
     assert err == 0.0 or 20.0 * np.log10(err) <= -90.0, err
+
+
+def test_step_kernels_take_strided_blocks(dev):
+    """A block sliced out of a longer (C, T) signal (rows T apart, as the
+    chain's blocks are) gives what its contiguous copy gives."""
+    from aefs_tpu_torch.models.octaver import Octaver
+    from aefs_tpu_torch.ops.kernels.resample import chorus_step, octaver_step
+
+    rng = np.random.default_rng(13)
+    long = _noise(rng, (2, 4 * 256), dev)
+    xs = long[:, 256:512]
+    assert not xs.is_contiguous()
+    st = Octaver(48000, 256, device=dev).init_state()
+    p = {"semitones": torch.tensor(-12.0, device=dev), "mix": torch.tensor(0.4, device=dev)}
+    assert torch.equal(octaver_step(st, p, xs)[1], octaver_step(st, p, xs.contiguous())[1])
+    cst = {"hist": _noise(rng, (2, 2408), dev), "ph_hi": torch.tensor(0.1, device=dev),
+           "ph_lo": torch.tensor(0.0, device=dev)}
+    cp = {k: torch.tensor(v, device=dev) for k, v in (("rate_hz", 0.6), ("depth_ms", 4.0),
+          ("base_ms", 14.0), ("mix", 0.5), ("spread", 0.25))}
+    assert torch.equal(chorus_step(cst, cp, xs, 48000)[1],
+                       chorus_step(cst, cp, xs.contiguous(), 48000)[1])
 
 
 @pytest.mark.parametrize("n", [900, 20000, 892800])

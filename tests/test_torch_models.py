@@ -142,23 +142,23 @@ def test_file_mode(etype, _preset, params):
 
 
 def _spy_two_tap_reads(monkeypatch):
-    """Record the block length of every call the octaver makes to the
-    two-tap kernel entry (K1)."""
+    """Record the block length of every call the octaver makes to its block
+    step (K1), which reads both taps."""
     import aefs_tpu_torch.models.octaver as octaver_mod
 
-    calls, real = [], octaver_mod.fractional_read_resample2
+    calls, real = [], octaver_mod.octaver_step
 
-    def spy(hist, x, ago1, ago2):
+    def spy(state, p, x):
         calls.append(x.shape[-1])
-        return real(hist, x, ago1, ago2)
+        return real(state, p, x)
 
-    monkeypatch.setattr(octaver_mod, "fractional_read_resample2", spy)
+    monkeypatch.setattr(octaver_mod, "octaver_step", spy)
     return calls
 
 
 def test_octaver_plus7_file_mode_takes_the_two_tap_read(monkeypatch):
-    """A non-octave ratio in file mode reads through the two-tap kernel
-    entry, once over the whole signal."""
+    """A non-octave ratio in file mode runs the block step K1 (both taps),
+    once over the whole signal."""
     cfg = [{"effect_id": "o", "type": "octaver", "params": {"semitones": 7, "mix": 0.5}}]
     chain, state, tmap = build_chain(cfg, FS, 4096, channels_in=2,
                                      static_overrides=file_static_overrides(cfg), device="cpu")
@@ -173,7 +173,7 @@ def test_octaver_plus7_file_mode_takes_the_two_tap_read(monkeypatch):
 def test_octaver_two_tap_read_off_the_tpu_tile_rule(monkeypatch, fs, blocksize, fast):
     """Geometries where the reference's TPU tile rule reads each tap with the
     plain gather (a 640-sample ring at 16 kHz; blocks that are no multiple
-    of 128) still read through K1's entry in the port, and agree with JAX."""
+    of 128) still run the block step K1 in the port, and agree with JAX."""
     cfg = [{"effect_id": "o", "type": "octaver", "params": {"semitones": 7, "mix": 0.5}}]
     x = tones(8 * blocksize if not fast else 3 * blocksize, fs=fs)
     calls = _spy_two_tap_reads(monkeypatch)

@@ -1,6 +1,7 @@
 """The PyTorch port stays framework-neutral: its copied files equal the JAX
 package's originals up to the package rename, and no module of the port
-(nor chip_smoke.py) imports JAX or the JAX package."""
+(nor chip_smoke.py or scripts/profile_port.py) imports JAX, the JAX
+package or the JAX system's driver entry (``__graft_entry__``)."""
 
 import ast
 import pathlib
@@ -11,7 +12,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "aefs_tpu_torch"
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
-FORBIDDEN = {"jax", "jaxlib", "aefs_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "aefs_tpu", "__graft_entry__"}
 
 
 @pytest.mark.parametrize(
@@ -36,10 +37,18 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("rel", PORT_FILES + ["chip_smoke.py"])
+@pytest.mark.parametrize("rel", PORT_FILES + ["chip_smoke.py", "scripts/profile_port.py"])
 def test_no_jax_import(rel):
     bad = sorted(set(_imported_roots(ROOT / rel)) & FORBIDDEN)
     assert not bad, (rel, bad)
+
+
+def test_flagship_copy_matches_driver_entry():
+    """The port's flagship config is the JAX driver entry's, value for value."""
+    import __graft_entry__
+    from aefs_tpu_torch.engine.flagship import FLAGSHIP
+
+    assert FLAGSHIP == __graft_entry__.FLAGSHIP
 
 
 def test_native_helper_resolves_to_repo_sources():

@@ -1,6 +1,8 @@
-"""Kernel K1's plain version (the octaver's two-tap read) against the JAX
-package, at the streaming geometry: ring size 1920, resample tile 128,
-window 640, on octaver-like phase ramps that include ring-wrap lanes."""
+"""The tap reads inside kernels K1 and K3's plain block steps (the
+octaver's two-tap read, the chorus's one-stream read per row) against the
+JAX package, at the streaming geometry: ring size 1920, resample tile 128,
+window 640, on octaver-like phase ramps that include ring-wrap lanes; and
+the step wrappers on CPU tensors, which count no launch."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -9,8 +11,7 @@ import torch
 
 from aefs_tpu.ops.ringbuf import fractional_read_cubic as jax_cubic
 from aefs_tpu.ops.ringbuf import fractional_read_resample2 as jax_resample2
-from aefs_tpu_torch.ops.kernels.resample import octaver_taps
-from aefs_tpu_torch.ops.ringbuf import fractional_read_resample2
+from aefs_tpu_torch.ops.kernels.resample import octaver_step, octaver_taps_plain
 
 from oracles import err_dbfs
 
@@ -48,7 +49,7 @@ CASES = [(n, s) for n in (256, 1024) for s in (-0.94, -0.5, 0.3, 0.9)]
 def test_plain_taps_match_jax_resample(n, step_scale):
     hist, x, ago1, ago2 = _inputs(n, step_scale, seed=n + int(100 * step_scale))
     t = [torch.from_numpy(a) for a in (hist, x, ago1, ago2)]
-    s1, s2 = fractional_read_resample2(*t)
+    s1, s2 = octaver_taps_plain(*t)
     j = [jnp.asarray(a) for a in (hist, x, ago1, ago2)]
     for use_pallas in ("interpret", False):
         r1, r2 = jax_resample2(*j, TILE, WINDOW, use_pallas=use_pallas)
@@ -63,24 +64,35 @@ def test_plain_taps_match_jax_resample(n, step_scale):
 def test_plain_taps_match_jax_gather(n, step_scale):
     """Same arithmetic as the JAX gather read: agreement to the ulp."""
     hist, x, ago1, ago2 = _inputs(n, step_scale, seed=7 * n + int(100 * step_scale))
-    s1, s2 = octaver_taps(*(torch.from_numpy(a) for a in (hist, x, ago1, ago2)))
+    s1, s2 = octaver_taps_plain(*(torch.from_numpy(a) for a in (hist, x, ago1, ago2)))
     for got, ago in ((s1, ago1), (s2, ago2)):
         ref = jax_cubic(jnp.asarray(hist), jnp.asarray(x), jnp.asarray(ago))
         assert err_dbfs(got.numpy(), ref) <= -120, err_dbfs(got.numpy(), ref)
 
 
 def test_plain_taps_on_cpu_do_not_count_launches():
-    hist, x, ago1, ago2 = _inputs(256, -0.5, seed=1)
-    before = octaver_taps.launches
-    octaver_taps(*(torch.from_numpy(a) for a in (hist, x, ago1, ago2)))
-    assert octaver_taps.launches == before
+    """The octaver's step on CPU tensors is its plain version and launches
+    nothing."""
+    from aefs_tpu_torch.models.octaver import Octaver
+    from aefs_tpu_torch.ops.kernels.resample import octaver_step_plain
+
+    model = Octaver(48000, 256)
+    hist, x, _, _ = _inputs(256, -0.5, seed=1)
+    state = {**model.init_state(), "hist": torch.from_numpy(hist)}
+    p = {"semitones": torch.tensor(-12.0), "mix": torch.tensor(0.4)}
+    xs = torch.from_numpy(np.stack([x, -x]))
+    before = octaver_step.launches
+    st, y = octaver_step(state, p, xs)
+    assert octaver_step.launches == before
+    st_ref, y_ref = octaver_step_plain(state, p, xs)
+    assert torch.equal(y, y_ref)
+    assert all(torch.equal(st[k], st_ref[k]) for k in st_ref)
 
 
 # --- Kernel K3: one stream's tap read per row (the chorus's tap) -----------
 
 from aefs_tpu.ops.ringbuf import fractional_read_resample as jax_resample
-from aefs_tpu_torch.ops.kernels.resample import fractional_read, fractional_read_plain
-from aefs_tpu_torch.ops.ringbuf import fractional_read_resample
+from aefs_tpu_torch.ops.kernels.resample import chorus_step, fractional_read_plain
 
 CHORUS_HIST = 2408  # int((40 + 10) * 48000 / 1000) + 8
 
@@ -112,12 +124,12 @@ K3_CASES = [("chorus", 256), ("chorus", 1024), ("wrap", 256), ("wrap", 1024)]
 
 @pytest.mark.parametrize("geom,n", K3_CASES)
 def test_fractional_read_matches_jax_resample(geom, n):
-    """Both rows through the port's K3 entry against the JAX package's
+    """Both rows through K3's plain read against the JAX package's
     ``fractional_read_resample`` (Pallas in interpret mode and its XLA
     form), row by row: the band form's frac (qw - floor(qw)) rounds at
     ulp(window), the gather's (ceil(ago) - ago) at ulp(ago), ~-95 dBFS."""
     hist, x, ago = (_chorus_rows if geom == "chorus" else _wrap_rows)(n, seed=n)
-    got = fractional_read_resample(*(torch.from_numpy(a) for a in (hist, x, ago))).numpy()
+    got = fractional_read_plain(*(torch.from_numpy(a) for a in (hist, x, ago))).numpy()
     assert got.shape == (2, n)
     for use_pallas in ("interpret", False):
         for r in range(2):
@@ -129,20 +141,30 @@ def test_fractional_read_matches_jax_resample(geom, n):
 
 @pytest.mark.parametrize("geom,n", K3_CASES)
 def test_fractional_read_plain_is_the_gather_per_row(geom, n):
-    """The plain version is JAX's gather read on each row, to the ulp; the
-    1-D form of the entry is the 2-D form's row."""
+    """The plain read is JAX's gather read on each row, to the ulp; a
+    one-row call gives the two-row call's row."""
     hist, x, ago = (_chorus_rows if geom == "chorus" else _wrap_rows)(n, seed=3 * n)
     got = fractional_read_plain(*(torch.from_numpy(a) for a in (hist, x, ago))).numpy()
     for r in range(2):
         ref = np.asarray(jax_cubic(jnp.asarray(hist[r]), jnp.asarray(x[r]), jnp.asarray(ago[r])))
         assert err_dbfs(got[r], ref) <= -120, err_dbfs(got[r], ref)
-        one = fractional_read_resample(*(torch.from_numpy(a[r]) for a in (hist, x, ago)),
-                                       tile=TILE, window=WINDOW)
-        assert np.array_equal(one.numpy(), got[r])
+        one = fractional_read_plain(*(torch.from_numpy(a[r:r + 1]) for a in (hist, x, ago)))
+        assert np.array_equal(one.numpy()[0], got[r])
 
 
 def test_fractional_read_on_cpu_does_not_count_launches():
-    hist, x, ago = _chorus_rows(256, seed=1)
-    before = fractional_read.launches
-    fractional_read(*(torch.from_numpy(a) for a in (hist, x, ago)))
-    assert fractional_read.launches == before
+    """The chorus's step on CPU tensors is its plain version and launches
+    nothing."""
+    from aefs_tpu_torch.ops.kernels.resample import chorus_step_plain
+
+    hist, x, _ = _chorus_rows(256, seed=1)
+    state = {"hist": torch.from_numpy(hist), "ph_hi": torch.tensor(0.13),
+             "ph_lo": torch.tensor(0.0)}
+    p = {"rate_hz": torch.tensor(0.6), "depth_ms": torch.tensor(4.0),
+         "base_ms": torch.tensor(14.0), "mix": torch.tensor(0.5), "spread": torch.tensor(0.25)}
+    before = chorus_step.launches
+    st, y = chorus_step(state, p, torch.from_numpy(x), 48000)
+    assert chorus_step.launches == before
+    st_ref, y_ref = chorus_step_plain(state, p, torch.from_numpy(x), 48000)
+    assert torch.equal(y, y_ref)
+    assert all(torch.equal(st[k], st_ref[k]) for k in st_ref)
