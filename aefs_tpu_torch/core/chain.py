@@ -21,7 +21,7 @@ from aefs_tpu_torch.core.params import smooth_all
 
 class Chain:
     def __init__(self, fs: int, channels_in: int, channels_out: int,
-                 blocksize: int, effects, device="cpu"):
+                 blocksize: int, effects, device="cuda"):
         self.fs = int(fs)
         self.ci = int(channels_in)
         self.co = int(channels_out)
@@ -116,13 +116,14 @@ class Chain:
 
 
 def build_chain(effects_config, fs, blocksize, channels_in=1, channels_out=2,
-                static_overrides=None, device="cpu"):
+                static_overrides=None, device="cuda"):
     """Chain factory from a JSON-style config list (engine.py:38-65).
 
     effects_config: [{"effect_id": str, "type": str, "params": {...}}, ...]
     static_overrides: optional extra static config, keyed by effect_id
       (takes precedence) or effect type.
-    device: where the chain's state and targets live ("cpu", "cuda", ...).
+    device: where the chain's state and targets live; the card unless the
+      caller passes "cpu" (no fallback: without a card the default raises).
 
     Unknown types are skipped like the reference (engine.py:56); a
     ``multiband`` config is expanded onto the parallel container
@@ -132,7 +133,9 @@ def build_chain(effects_config, fs, blocksize, channels_in=1, channels_out=2,
     {effect_id: params} dict mirroring the initial state."""
     from aefs_tpu_torch.core.multiband import expand_multiband
     from aefs_tpu_torch.models import EFFECT_REGISTRY
+    from aefs_tpu_torch.utils.platform import require_device
 
+    device = require_device(device)
     static_overrides = static_overrides or {}
     effects, configs = [], {}
     for i, cfg in enumerate(effects_config):
@@ -164,6 +167,10 @@ def build_chain(effects_config, fs, blocksize, channels_in=1, channels_out=2,
 
     chain = Chain(fs, channels_in, channels_out, blocksize, effects, device=device)
     chain.config_seeds = configs
+    # The raw config, kept on the chain so a snapshot of the chain carries
+    # its own config (save_session): the engine's last_chain_config may
+    # already name a newer chain.
+    chain.source_config = effects_config
     state = chain.init_state(configs)
     targets_map = {
         eid: {k: float(v) for k, v in configs.get(eid, {}).items()}

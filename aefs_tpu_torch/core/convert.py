@@ -8,6 +8,12 @@ packages.  The JAX side hands it over with its leaves converted to numpy
 stay int32, and the ring mod's and bitcrusher's uint32 phase accumulators
 (``acc``) stay uint32 bit for bit: the port keeps them as ``torch.uint32``
 and does their arithmetic in int64 (models/ringmod.py).
+
+A checkpoint stores the leaves as a flat list, ``leaf_{i}`` in the order
+``jax.tree.flatten`` gives: dict keys sorted, tuples and lists in order.
+The port's trees keep insertion order, which differs in most chains, so
+``flatten_like_jax`` / ``unflatten_like_jax`` walk them in JAX's order and
+a session saved by either package resumes in the other.
 """
 
 from __future__ import annotations
@@ -26,3 +32,32 @@ def state_from_numpy(tree, device):
 def state_to_numpy(state):
     """The port's state tree -> the same tree with numpy leaves."""
     return tree_map(lambda t: t.detach().cpu().numpy(), state)
+
+
+def flatten_like_jax(tree):
+    """The leaves of a dict/tuple/list tree in ``jax.tree.flatten``'s
+    order: dict keys sorted, tuples and lists in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in flatten_like_jax(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for sub in tree for leaf in flatten_like_jax(sub)]
+    return [tree]
+
+
+def unflatten_like_jax(template, leaves):
+    """A tree shaped like ``template`` (insertion order kept) whose leaves
+    are taken from ``leaves`` in ``flatten_like_jax``'s order."""
+    it = iter(leaves)
+
+    def fill(t):
+        if isinstance(t, dict):
+            filled = {k: fill(t[k]) for k in sorted(t)}
+            return {k: filled[k] for k in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(fill(sub) for sub in t)
+        return next(it)
+
+    out = fill(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out

@@ -1,17 +1,26 @@
-"""AudioEngine: session runtime (port of aefs_tpu/engine/engine.py, the
-file-mode core and the streaming block path).
+"""AudioEngine: session runtime (port of aefs_tpu/engine/engine.py).
 
 Owns the current streaming chain (fs=48000, blocksize=256) on one device,
-the host-side parameter-target map and the plot queues.  ``update_param``
-only rewrites the target map; the smoothed glide happens inside the block
-step.  File mode renders through a fresh chain in one whole-signal pass.
+the host-side parameter-target map, the plot queues, the optional mic
+stream and live file stream, session checkpoints, uploaded IRs and learned
+noise profiles, and whole-file processing (one file, or a batch through
+``render_batch``).
 
-Not ported yet: the mic and file-stream threads, sessions/checkpoints,
-IR uploads and noise profiles, ``render_batch``.
+- ``update_param`` only rewrites the target map; the smoothed glide
+  happens inside the block step.
+- A rebuild builds the new chain, warms it with two dummy blocks on a
+  throw-away state, then swaps (chain, state, targets) under a lock.
+- File mode renders through a fresh chain in one whole-signal pass.
+
+Entry points run on the card unless the caller passes ``device="cpu"``;
+there is no fallback.
 """
 
 from __future__ import annotations
 
+import asyncio
+import json
+import os
 import queue
 import threading
 
@@ -27,13 +36,31 @@ from aefs_tpu_torch.core.config import (
     SAMPLE_RATE,
 )
 from aefs_tpu_torch.core.fileopts import file_static_overrides
+from aefs_tpu_torch.engine.wavio import decode_wav, encode_wav_int16
+from aefs_tpu_torch.utils.metrics import BlockTimer
+from aefs_tpu_torch.utils.platform import require_device
+
+try:  # optional, absent in server images (reference engine.py:12-15)
+    import sounddevice as sd
+except (ImportError, OSError):
+    sd = None
+
+
+def _decode_data_url(contents: str):
+    """base64 WAV data URL -> (audio, fs)."""
+    from aefs_tpu_torch import native
+
+    _, content_string = contents.split(",")
+    return decode_wav(native.b64decode(content_string))
 
 
 def process_offline(chain_config, audio, fs, superblock=FILE_SUPERBLOCK,
                     extra_static=None, device="cuda"):
     """Whole-file processing through a fresh chain on ``device`` (the
     file-mode core, engine.py:86-102): (frames, ch) float in -> (mono
-    (frames, 1), clipped stereo (frames, 2)) out."""
+    (frames, 1), clipped stereo (frames, 2)) out.  ``extra_static`` merges
+    on top of the derived file statics (a session's uploaded IR, a learned
+    noise profile)."""
     if audio.ndim > 1:
         mono = audio.mean(axis=1, keepdims=True)
     else:
@@ -51,39 +78,274 @@ def process_offline(chain_config, audio, fs, superblock=FILE_SUPERBLOCK,
     return mono, np.clip(out, -1.0, 1.0)
 
 
+def render_batch(chain_config, audios, fs, superblock=FILE_SUPERBLOCK,
+                 shard: bool = False, device="cuda"):
+    """Offline rendering of many files through one chain topology, with the
+    JAX package's contract (engine.py:77-155): mono downmix, every file
+    zero-padded to the longest rounded up to the superblock, file statics,
+    a fresh state per file, each output clipped and trimmed to its file's
+    length.
+
+    The chain is built once; each file then runs ``process_whole`` from its
+    own ``chain.init_state()``, one after another on the device.
+    ``shard=True`` with one visible card renders exactly as
+    ``shard=False`` (as JAX does on one device); across several cards it
+    needs the data axis of ``parallel/mesh.py``, which is not ported.
+
+    audios: list of (frames_i,) or (frames_i, ch) arrays, one sample rate.
+    Returns a list of (frames_i, 2) float32 clipped outputs.
+    """
+    device = require_device(device)
+    if shard and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            "render_batch(shard=True) over more than one card needs the data "
+            "axis of parallel/mesh.py, which aefs_tpu_torch does not port yet")
+    monos = []
+    for a in audios:
+        a = np.asarray(a, np.float32)
+        monos.append(a.mean(axis=1) if a.ndim > 1 else a)
+    length = max(m.shape[0] for m in monos)
+    lp = -(-length // superblock) * superblock
+
+    chain, _, targets_map = build_chain(
+        chain_config, fs, superblock, channels_in=1, channels_out=2,
+        static_overrides=file_static_overrides(chain_config), device=device,
+    )
+    targets = chain.targets(targets_map)
+    ys = []
+    for m in monos:
+        x = np.zeros((1, lp), np.float32)
+        x[0, : m.shape[0]] = m
+        _, y = chain.process_whole(chain.init_state(), targets,
+                                   torch.from_numpy(x).to(device))
+        ys.append(y)
+    return [
+        np.clip(y.cpu().numpy()[:, : m.shape[0]], -1.0, 1.0).T.copy()
+        for y, m in zip(ys, monos)
+    ]
+
+
+class _Pipeline:
+    """Depth-1 readback for ``process_stream_block_pipelined``: block k's
+    output goes into one of two pinned host buffers with a non-blocking
+    copy and a CUDA event; the next call returns it after waiting on that
+    event only.  On the CPU the output tensor itself is kept."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.bufs = [torch.empty((CHANNELS_OUT, BLOCKSIZE), dtype=torch.float32,
+                                     pin_memory=True) for _ in range(2)]
+            self.next = 0
+
+    def launch(self, y):
+        """Start block y's readback; returns a handle for ``collect``."""
+        if not self.cuda:
+            return y
+        buf = self.bufs[self.next][:, : y.shape[1]]
+        self.next ^= 1
+        buf.copy_(y, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return buf, ev
+
+    def collect(self, handle):
+        if not self.cuda:
+            return handle.numpy().T.copy()
+        buf, ev = handle
+        ev.synchronize()
+        return buf.numpy().T.copy()
+
+
 class AudioEngine:
     def __init__(self, data_queues=None, device="cuda"):
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self.data_queues = data_queues or {
             "input": queue.Queue(maxsize=200),
             "output": queue.Queue(maxsize=200),
         }
         self.current_sample_rate = SAMPLE_RATE
+        self.is_running = False
+        self.is_processing_file = False
+        self.status_count = 0
+        self.stream = None
         self.chain = None
         self.last_chain_config = []
+        self.last_file_contents = None
+        # User-selected (input, output) PortAudio device indices; None means
+        # OS default.  Applied at the next mic-stream start.
+        self.devices = (None, None)
+        # Live file stream: lossless processed-block queue for playback, its
+        # thread and stop event (published together, after the start).
+        self.playback_queue = None
+        self._file_thread = None
+        self._file_stream_stop = None
         self._lock = threading.Lock()  # guards (chain, state, targets) swaps
-        # Serializes block steps: two concurrent producers must not both
-        # step from the same state (one block would be lost).
+        # Serializes block steps and state snapshots: two concurrent
+        # producers (mic callback, file-stream thread) must not both step
+        # from one state, and save_session must not copy a state a step is
+        # about to replace.
         self._step_lock = threading.Lock()
         self._param_lock = threading.Lock()  # serializes update_param writers
         self._tap_lock = threading.Lock()  # one producer at a time on the plot rings
+        # Held by start_file_stream from the thread's start to its
+        # publication; the thread's exit takes it before it may clear
+        # is_running, so it never clears the flag ahead of the publication.
+        self._publish_lock = threading.Lock()
         self._targets_map = {}
+        self._pending = None  # depth-1 pipeline: (chain, readback handle)
+        self._pipeline = _Pipeline(self.device)
+        # Uploaded convreverb IRs: {effect_id: ((ch, n) float32, ir_fs)};
+        # learned spectral noise profiles: {effect_id: (bins,) float32}.
+        # Both ride session checkpoints and are pruned when their effect
+        # leaves the chain.
+        self.custom_irs = {}
+        self.noise_profiles = {}
+        # Live noise capture in flight: {"need": blocks, "blocks": [...],
+        # "done": Event}; _tap_plots appends input blocks while set.
+        self._noise_capture = None
+        self.metrics = BlockTimer(self.current_sample_rate, BLOCKSIZE)
         self.build_chain([])
 
     # -- chain lifecycle (engine.py:38-65) ------------------------------
-    def build_chain(self, effects_config):
-        chain, state, targets_map = build_chain(
+    def _warm(self, chain, targets):
+        """Run two dummy blocks on a throw-away state and wait for them, so
+        the first live block after a rebuild does not pay kernel loading
+        and cuFFT/cuBLAS plan setup (core.py:131-136)."""
+        st = chain.init_state()
+        dummy = torch.zeros((chain.ci, chain.blocksize), dtype=torch.float32,
+                            device=self.device)
+        for _ in range(2):
+            st, y = chain.process_block(st, targets, dummy)
+        y.cpu()
+
+    def _build(self, effects_config):
+        """(chain, fresh state, targets map) for ``effects_config`` at the
+        current rate, with the session's IRs and noise profiles."""
+        return build_chain(
             effects_config, self.current_sample_rate, BLOCKSIZE,
             channels_in=CHANNELS_IN, channels_out=CHANNELS_OUT,
+            static_overrides=self._ir_overrides(effects_config, self.current_sample_rate),
             device=self.device,
         )
-        targets = chain.targets(targets_map)
+
+    def _swap(self, chain, state, targets_map, targets, config):
         with self._lock:
             self.chain = chain
-            self.last_chain_config = effects_config
+            # Swapped together with the chain, so readers holding _lock
+            # always see a (chain, config) pair that belongs together.
+            self.last_chain_config = config
             self.chain_state = state
             self._targets_map = targets_map
             self._targets = targets
+            self._pending = None  # an in-flight block belongs to the old chain
+
+    def _ir_overrides(self, effects_config, fs):
+        """Static-override map carrying uploaded IRs and learned noise
+        profiles into a chain build (IRs resampled to the build rate);
+        prunes entries whose effect left the chain."""
+        from aefs_tpu_torch.engine.checkpoint import (
+            ir_static_overrides, profile_static_overrides,
+        )
+
+        ids = {c.get("effect_id") for c in effects_config}
+        self.custom_irs = {k: v for k, v in self.custom_irs.items() if k in ids}
+        self.noise_profiles = {
+            k: v for k, v in self.noise_profiles.items() if k in ids
+        }
+        out = ir_static_overrides(self.custom_irs, effects_config, fs)
+        for eid, extra in profile_static_overrides(
+            self.noise_profiles, effects_config
+        ).items():
+            out.setdefault(eid, {}).update(extra)
+        return out
+
+    def _effect_kind(self, effect_id):
+        return {c.get("effect_id"): c.get("type") for c in self.last_chain_config}.get(effect_id)
+
+    def set_ir(self, effect_id: str, contents: str) -> float:
+        """Install a user-uploaded IR WAV (base64 data URL) on a convreverb
+        in the current chain and rebuild so it takes effect.  Returns the
+        IR length in seconds."""
+        if self._effect_kind(effect_id) != "convreverb":
+            raise ValueError(
+                f"effect ID '{effect_id}' is not a convreverb in the "
+                "current chain"
+            )
+        audio, fs_ir = _decode_data_url(contents)
+        ir = audio.T if audio.ndim > 1 else audio[None, :]
+        self.custom_irs[effect_id] = (np.asarray(ir, np.float32), int(fs_ir))
+        self.build_chain(self.last_chain_config)
+        return ir.shape[-1] / float(fs_ir)
+
+    def learn_noise(self, effect_id: str, contents: str = None,
+                    seconds: float = 2.0) -> float:
+        """Learn a per-bin noise profile for a spectral filter in the
+        current chain and rebuild so the gate thresholds per bin.  Sources:
+
+        - ``contents``: a noise-only WAV (base64 data URL), resampled to
+          the engine rate when it differs;
+        - live capture (``contents is None``): the next ``seconds`` of
+          streaming input audio.  Needs an active stream; blocks the
+          calling thread until the capture completes.  One at a time.
+
+        Returns the measured mean noise floor in dBFS."""
+        from aefs_tpu_torch.models.spectral import measure_noise_profile
+
+        if self._effect_kind(effect_id) != "spectral":
+            raise ValueError(
+                f"effect ID '{effect_id}' is not a spectral filter in the "
+                "current chain"
+            )
+        if contents is not None:
+            audio, fs_wav = _decode_data_url(contents)
+            mono = audio.mean(axis=1) if audio.ndim > 1 else audio
+            if int(fs_wav) != int(self.current_sample_rate):
+                # Profile bins are indexed against the ENGINE rate: an
+                # off-rate WAV analyzed raw would map every per-bin
+                # threshold to the wrong frequency.
+                from aefs_tpu_torch.engine.wavio import resample_bandlimited
+
+                n_out = max(
+                    8,
+                    int(round(len(mono) * self.current_sample_rate / fs_wav)),
+                )
+                mono = resample_bandlimited(mono, n_out)
+        else:
+            need = max(1, int(round(float(seconds) * self.current_sample_rate
+                                    / BLOCKSIZE)))
+            cap = {"need": need, "blocks": [], "done": threading.Event()}
+            with self._lock:
+                # A second concurrent capture would steal this one's blocks.
+                if self._noise_capture is not None:
+                    raise ValueError(
+                        "a noise capture is already in progress"
+                    )
+                self._noise_capture = cap
+            try:
+                if not cap["done"].wait(timeout=float(seconds) + 10.0):
+                    raise ValueError(
+                        "no streaming audio to learn from — start the mic "
+                        "or a file stream, or upload a noise WAV"
+                    )
+            finally:
+                with self._lock:
+                    if self._noise_capture is cap:
+                        self._noise_capture = None
+            mono = np.concatenate(cap["blocks"])
+        profile = measure_noise_profile(mono, hop=BLOCKSIZE)
+        self.noise_profiles[effect_id] = profile
+        self.build_chain(self.last_chain_config)
+        floor = max(float(profile.mean()), 1e-10)
+        # Mean |rfft| of a Hann frame scales with n_fft/4; normalize to a
+        # rough dBFS figure for the UI status line.
+        return 20.0 * float(np.log10(floor / (2 * BLOCKSIZE / 4)))
+
+    def build_chain(self, effects_config):
+        chain, state, targets_map = self._build(effects_config)
+        targets = chain.targets(targets_map)
+        self._warm(chain, targets)
+        self._swap(chain, state, targets_map, targets, effects_config)
 
     def update_param(self, effect_id: str, param_name: str, value: float):
         """Route a live parameter change (engine.py:131-145): rewrite the
@@ -115,28 +377,117 @@ class AudioEngine:
                             cfg.setdefault("params", {})[param_name] = spec.clamp(value)
                             break
 
-    # -- block streaming ------------------------------------------------
-    def process_stream_block(self, in_block: np.ndarray) -> np.ndarray:
-        """One hot-path block: (N, ci) float32 in -> (N, co) float32 out.
-        Feeds the plot queues like the reference's PlotDataTap chain
-        heads/tails (core.py:89-106)."""
-        x = torch.from_numpy(np.ascontiguousarray(np.asarray(in_block, np.float32).T))
-        x = x.to(self.device)
+    # -- session checkpoint/resume (engine/checkpoint.py) ----------------
+    def save_session(self, path: str) -> str:
+        """Checkpoint the live session (chain config, parameter targets,
+        the full audio-state tree, uploaded IRs and noise profiles) to a
+        directory; returns the path."""
+        from aefs_tpu_torch.core.convert import state_to_numpy
+        from aefs_tpu_torch.engine.checkpoint import save_session
+
+        # Snapshot and copy to the host under the step lock: no step can be
+        # half-published while the state is read.
         with self._step_lock:
             with self._lock:
-                chain, state, targets = self.chain, self.chain_state, self._targets
-            state, y = chain.process_block(state, targets, x)
-            with self._lock:
-                # A chain swapped mid-block drops this block's state, as in
-                # the reference's benign rebuild race.
-                if self.chain is chain:
-                    self.chain_state = state
-        out = y.cpu().numpy().T
+                chain, state, tmap = self.chain, self.chain_state, self._targets_map
+                irs = dict(self.custom_irs)
+                profiles = dict(self.noise_profiles)
+                fs = self.current_sample_rate
+            state = state_to_numpy(state)
+        # The snapshotted chain's own config, never last_chain_config: a
+        # concurrent rebuild may already have replaced it, and a
+        # checkpoint pairing a new config with this state is unloadable.
+        save_session(path, chain.source_config, tmap, state, custom_irs=irs,
+                     noise_profiles=profiles, fs=fs)
+        return path
+
+    def resume_session(self, path: str):
+        """Rebuild the chain from a checkpoint and graft the saved audio
+        state onto it: ring buffers, filter taps and phasors continue
+        bit-exact.  Returns the restored chain config."""
+        from aefs_tpu_torch.engine.checkpoint import load_session, remap_profiles
+
+        (chain_config, targets_map, rebuild_state, irs,
+         profiles, ck_meta) = load_session(path)
+        # Profile bins are fs-dependent: re-bin a checkpoint saved at
+        # another rate onto this engine's analysis grid.
+        profiles = remap_profiles(profiles, ck_meta.get("fs"),
+                                  self.current_sample_rate)
+        # For every effect id the checkpoint's config names, the checkpoint
+        # is the sole source of truth: an IR or profile learned in-process
+        # for that id but absent from the checkpoint must not survive.
+        ids = {c.get("effect_id") for c in chain_config}
+        self.custom_irs = {
+            k: v for k, v in self.custom_irs.items() if k not in ids
+        }
+        self.noise_profiles = {
+            k: v for k, v in self.noise_profiles.items() if k not in ids
+        }
+        self.custom_irs.update(irs)
+        self.noise_profiles.update(profiles)
+        chain, _, _ = self._build(chain_config)
+        targets = chain.targets(targets_map)
+        state = rebuild_state(chain.init_state())
+        self._warm(chain, targets)
+        self._swap(chain, state, targets_map, targets, chain_config)
+        return chain_config
+
+    # -- block streaming ------------------------------------------------
+    def _step_held(self, in_block):
+        """One block step; the caller holds the step lock -> (the chain it
+        ran on, y)."""
+        x = torch.from_numpy(np.ascontiguousarray(np.asarray(in_block, np.float32).T))
+        x = x.to(self.device)
+        with self._lock:
+            chain, state, targets = self.chain, self.chain_state, self._targets
+        state, y = chain.process_block(state, targets, x)
+        with self._lock:
+            # A chain swapped mid-block drops this block's state, as in the
+            # reference's benign rebuild race.
+            if self.chain is chain:
+                self.chain_state = state
+        return chain, y
+
+    def process_stream_block(self, in_block: np.ndarray) -> np.ndarray:
+        """One hot-path block: (N, ci) float32 in -> (N, co) float32 out.
+        Timed by ``self.metrics``; feeds the plot queues like the
+        reference's PlotDataTap chain heads/tails (core.py:89-106)."""
+        with self.metrics.block():
+            with self._step_lock:
+                _, y = self._step_held(in_block)
+            out = y.cpu().numpy().T
+        self._tap_plots(in_block, out)
+        return out
+
+    def process_stream_block_pipelined(self, in_block: np.ndarray) -> np.ndarray:
+        """Depth-1 pipelined hot path: step block k, return block k-1's
+        processed audio (one block of added latency, 5.33 ms @ 48 kHz).
+        The host enqueues block k while the device finishes block k-1, and
+        waits only on block k-1's readback.  Priming and a chain swap
+        return one silent block."""
+        with self.metrics.block():
+            with self._step_lock:
+                chain, y = self._step_held(in_block)
+                handle = self._pipeline.launch(y)
+                with self._lock:
+                    pending, self._pending = self._pending, (chain, handle)
+                if pending is not None and pending[0] is chain:
+                    out = self._pipeline.collect(pending[1])
+                else:
+                    out = np.zeros((in_block.shape[0], CHANNELS_OUT), np.float32)
         self._tap_plots(in_block, out)
         return out
 
     def _tap_plots(self, in_block, out):
-        """Feed the plot queues as a pair: drop both blocks or neither."""
+        """Feed the plot queues as a pair: drop both blocks or neither (an
+        independent drop could desynchronize the two rings forever)."""
+        cap = self._noise_capture
+        if cap is not None and not cap["done"].is_set():
+            # learn_noise live capture: collect mono input blocks host-side.
+            cap["blocks"].append(
+                np.asarray(in_block, np.float32).mean(axis=1))
+            if len(cap["blocks"]) >= cap["need"]:
+                cap["done"].set()
         fanned = np.repeat(in_block, 2, axis=1) if in_block.shape[1] == 1 else in_block
         qin, qout = self.data_queues["input"], self.data_queues["output"]
         with self._tap_lock:
@@ -147,8 +498,230 @@ class AudioEngine:
             except queue.Full:
                 pass
 
+    def _set_rate(self, fs):
+        """Sample-rate renegotiation: the chain and the deadline the
+        metrics judge xruns against both depend on the rate."""
+        self.current_sample_rate = int(fs)
+        self.metrics = BlockTimer(int(fs), BLOCKSIZE)
+        print(f"Rebuilding effects chain for {fs} Hz...")
+        self.build_chain(self.last_chain_config)
+
+    # -- mic stream (engine.py:147-190) ---------------------------------
+    def start_mic_stream(self):
+        if self.is_running:
+            print("Warning: stream is already running")
+            return
+        if sd is None:
+            print("Server Mode: Microphone hardware not available. Stream ignored.")
+            return
+
+        step = (
+            self.process_stream_block
+            if os.environ.get("AEFS_STREAM_PIPELINE", "1") == "0"
+            else self.process_stream_block_pipelined
+        )
+
+        def callback(indata, outdata, frames, t, status):
+            if status:
+                self.status_count += 1
+            outdata[:] = step(np.asarray(indata, np.float32))
+
+        try:
+            kwargs = {}
+            if self.devices != (None, None):
+                kwargs["device"] = self.devices
+            self.stream = sd.Stream(
+                samplerate=self.current_sample_rate,
+                blocksize=BLOCKSIZE,
+                dtype="float32",
+                latency="low",
+                channels=(CHANNELS_IN, CHANNELS_OUT),
+                callback=callback,
+                prime_output_buffers_using_stream_callback=True,
+                **kwargs,
+            )
+            self.stream.start()
+            self.is_running = True
+            actual = int(self.stream.samplerate)
+            if actual != self.current_sample_rate:
+                self._set_rate(actual)
+        except Exception as e:  # the device layer reports, the server keeps running
+            print(f"Error on stream start: {e}")
+
+    # -- live file stream ------------------------------------------------
+    def start_file_stream(self, contents: str = None, realtime: bool = True):
+        """Stream a WAV through the live hot path: the file replaces the
+        microphone as the block source, so parameter changes apply while it
+        plays.  Processed blocks go to ``self.playback_queue`` (lossless) as
+        ``(seq, (N, 2) float32)`` pairs, terminated by ``None``.
+        ``realtime=True`` paces the blocks at the audio cadence; ``False``
+        runs flat-out.  Returns True iff a stream started."""
+        if self.is_running:
+            print("Warning: stream is already running")
+            return False
+        contents = contents or self.last_file_contents
+        if not contents:
+            print("Warning: no file uploaded yet; nothing to stream")
+            return False
+        self.last_file_contents = contents
+
+        audio, fs = _decode_data_url(contents)
+        if audio.ndim > 1:  # same downmix as file mode (process_offline)
+            mono = audio.mean(axis=1, keepdims=True).astype(np.float32)
+        else:
+            mono = audio.reshape(-1, 1).astype(np.float32)
+        if fs != self.current_sample_rate:
+            self._set_rate(fs)
+
+        n = mono.shape[0]
+        pad = (-n) % BLOCKSIZE
+        if pad:
+            mono = np.concatenate([mono, np.zeros((pad, 1), np.float32)])
+        # The thread writes to its own queue (captured), so two racing
+        # starts cannot cross-post.
+        pq = self.playback_queue = queue.Queue()
+        stop = threading.Event()
+        period = BLOCKSIZE / float(fs)
+        n_blocks = mono.shape[0] // BLOCKSIZE
+
+        def run():
+            import time
+
+            try:
+                next_t = time.monotonic()
+                for seq in range(n_blocks):
+                    if stop.is_set():
+                        break
+                    out = self.process_stream_block(mono[seq * BLOCKSIZE:(seq + 1) * BLOCKSIZE])
+                    if seq == n_blocks - 1 and pad:
+                        out = out[: BLOCKSIZE - pad]  # trim tail padding
+                    pq.put((seq, out))
+                    if realtime:
+                        next_t += period
+                        delay = next_t - time.monotonic()
+                        if delay > 0:
+                            time.sleep(delay)
+                        else:  # fell behind: don't burst
+                            next_t = time.monotonic()
+            except Exception as e:  # the stream thread reports and ends
+                print(f"Error in file stream: {e}")
+            finally:
+                # Natural end only, and only once this thread is published:
+                # when stop_stream stopped it, stop_stream owns the flag.
+                with self._publish_lock:
+                    if self._file_stream_stop is stop and not stop.is_set():
+                        self.is_running = False
+                pq.put(None)
+
+        t = threading.Thread(target=run, daemon=True)
+        self.is_running = True
+        with self._publish_lock:
+            t.start()
+            # The stop event is published together with the started thread:
+            # a stop_stream landing before this line sees the previous
+            # (thread, event) pair and cannot stop or join the new stream.
+            with self._lock:
+                self._file_thread, self._file_stream_stop = t, stop
+            self.is_running = True
+        return True
+
+    def set_devices(self, in_index, out_index):
+        """Select the (input, output) device pair for the next stream start;
+        a running mic stream is restarted so the change applies.  A live
+        file stream is left alone."""
+        self.devices = (
+            int(in_index) if in_index is not None else None,
+            int(out_index) if out_index is not None else None,
+        )
+        if self.is_running and self.stream is not None:
+            self.stop_stream()
+            self.start_mic_stream()
+
+    def stop_stream(self):
+        if self.stream:
+            self.stream.stop()
+            self.stream.close()
+            self.stream = None
+            self.is_running = False
+        with self._lock:
+            t, stop = self._file_thread, self._file_stream_stop
+            self._file_thread = None
+        if t is not None:
+            stop.set()
+            if t is not threading.current_thread():
+                t.join(timeout=30)
+            # The stopping side owns the flag (the thread skips it once its
+            # stop event is set).
+            self.is_running = False
+        with self._lock:
+            self._pending = None
+
+    def close(self):
+        """End-of-session teardown: stop the streams and drop the chain."""
+        self.stop_stream()
+        with self._lock:
+            self.chain, self.chain_state = None, None
+
     # -- file mode (engine.py:67-129) -----------------------------------
     def process_file_array(self, audio: np.ndarray, fs: int):
         """(frames, ch) float32 -> (mono, (frames, 2) float32) through a
-        fresh chain built from the last config at the file's sample rate."""
-        return process_offline(self.last_chain_config, audio, fs, device=self.device)
+        fresh chain built from the last config at the file's sample rate,
+        with the session's IRs and noise profiles."""
+        return process_offline(
+            self.last_chain_config, audio, fs,
+            extra_static=self._ir_overrides(self.last_chain_config, fs),
+            device=self.device,
+        )
+
+    async def process_wav_file(self, contents: str, websocket):
+        """Render an uploaded WAV (base64 data URL) and send the
+        ``file_processed`` payload through ``websocket.send``."""
+        if self.is_processing_file:
+            print("Warning. A file is already being process. Ignoring new request")
+            return
+        self.is_processing_file = True
+        # Kept for the reprocess_file command and the file stream.
+        self.last_file_contents = contents
+        try:
+            print("Info: Processing WAV")
+            from aefs_tpu_torch import native
+
+            audio, fs = _decode_data_url(contents)
+            loop = asyncio.get_running_loop()
+            mono, processed = await loop.run_in_executor(
+                None, self.process_file_array, audio, fs
+            )
+
+            def serialize():
+                wav_bytes = encode_wav_int16(processed, fs)
+                b64 = native.b64encode(wav_bytes).decode("ascii")
+                head_dict = {
+                    "type": "file_processed",
+                    "original_b64": contents,
+                    "processed_b64": f"data:audio/wav;base64,{b64}",
+                    "sample_rate": int(fs),
+                }
+                if os.environ.get("AEFS_SERVER_ANALYSIS", "1") == "1":
+                    # Windowed spectrum/chroma for playback scrubbing.
+                    from aefs_tpu_torch.utils.analysis import PlotAnalyzer
+
+                    try:
+                        head_dict["analysis"] = PlotAnalyzer(fs, device=self.device).analyze_file(
+                            mono[:, 0], processed.mean(axis=1)
+                        )
+                    except RuntimeError as e:
+                        print(f"Warning: file analysis unavailable: {e}")
+                head = json.dumps(head_dict)
+                return (
+                    head[:-1]
+                    + ',"original_samples":' + native.json_f32_array(mono.flatten())
+                    + ',"processed_samples":' + native.json_f32_array(processed.mean(axis=1))
+                    + "}"
+                )
+
+            await websocket.send(await loop.run_in_executor(None, serialize))
+        except Exception as e:  # a bad upload is reported, the session goes on
+            print(f"Error processing WAV file: {e}")
+        finally:
+            print("Success: Finished processing WAV file")
+            self.is_processing_file = False

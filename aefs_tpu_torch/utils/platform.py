@@ -1,0 +1,33 @@
+"""Runtime device selection (port of aefs_tpu/utils/platform.py).
+
+``AEFS_PLATFORM`` picks the device for server and CLI entry points, as it
+picks the JAX platform in the reference:
+
+    AEFS_PLATFORM=cpu    — the host (development, tests)
+    AEFS_PLATFORM=cuda   — the card (the default)
+
+There is no fallback: asking for the card where there is none raises.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises if it names CUDA and no
+    card is visible."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but no CUDA card is available "
+            "(pass device='cpu' to run on the host)")
+    return device
+
+
+def select_device(default: str | None = None) -> torch.device:
+    """The device named by ``AEFS_PLATFORM``, else ``default``, else the
+    card."""
+    return require_device(os.environ.get("AEFS_PLATFORM") or default or "cuda")

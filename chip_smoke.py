@@ -29,12 +29,26 @@ Drives the port's main path (aefs_tpu_torch) end to end on the card:
 8. streaming: ``AudioEngine(device="cuda")`` with the flagship chain,
    "Lush Chorus", "Concert Hall (Convolution)" and "Multiband Master",
    375 blocks of 256 samples of the demo's mono mix each, against the CPU
-   engine.
+   engine;
+9. the session layer and the CLI's batch and resumable modes:
+   ``render_batch`` of the flagship and "Lush Chorus" over three ragged
+   files (the demo, its first 10 s, its last 7 s; K2 once per file, K3 once
+   per "Lush Chorus" file) against ``process_offline`` and the CPU port;
+   ``--batch`` as a subprocess, byte-equal to ``render_batch``'s encoding;
+   the flagship's file stream (bit-equal to the block loop, K1 once per
+   block) with its ``BlockTimer`` snapshot; the pipelined step (bit-equal
+   to the synchronous one shifted by a block); a session saved at block 150
+   and resumed on the card (bit-equal) and on the CPU; an uploaded IR and a
+   learned noise profile streamed card vs CPU; ``--checkpoint`` SIGKILLed
+   and ``--resume``d, byte-equal to an uninterrupted run (K1 once per 4096
+   superblock); ``process_wav_file`` of the demo with a fake websocket.
 
-Every path of phases 6-8 runs from zeroed kernel launch counters, read
+Every path of phases 6-9 runs from zeroed kernel launch counters, read
 just after it; each fails if a kernel it runs was not launched.  The last
 slice's paths run none of the four kernels (their FFTs are cuFFT, as the
 JAX package's are ``jnp.fft`` outside Pallas); their counts are recorded.
+Phase 9 writes its scratch files under ``build/chip_smoke/`` and removes
+them.
 
 Each kernel's record holds its time per wrapper call (CUDA events over
 back-to-back calls, host cost included), its device-only time (the kernel
@@ -51,8 +65,12 @@ JAX.
 
 from __future__ import annotations
 
+import asyncio
+import base64
 import json
 import pathlib
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -63,9 +81,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from aefs_tpu_torch.core.config import DEFAULT_PRESETS
-from aefs_tpu_torch.engine.engine import AudioEngine, process_offline
+from aefs_tpu_torch.engine.engine import AudioEngine, process_offline, render_batch
 from aefs_tpu_torch.engine.flagship import FLAGSHIP
-from aefs_tpu_torch.engine.wavio import read_wav_file
+from aefs_tpu_torch.engine.wavio import decode_wav, encode_wav_int16, read_wav_file, write_wav_file
 from aefs_tpu_torch.models.octaver import Octaver
 from aefs_tpu_torch.models.reverb import Reverb
 from aefs_tpu_torch.models.spectral import SpectralFilter, db_to_lin
@@ -76,6 +94,7 @@ from aefs_tpu_torch.ops.kernels.comb import (
 from aefs_tpu_torch.ops.kernels.resample import (
     chorus_step, chorus_step_plain, octaver_step, octaver_step_plain)
 from aefs_tpu_torch.ops.ringbuf import comb_bank_file_chunks, comb_chunk_size
+from aefs_tpu_torch.utils.analysis import PlotAnalyzer
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DEMO = ROOT / "music" / "rain-demo.wav"
@@ -86,6 +105,10 @@ BUDGET_MS = 1000.0 * BLOCK / FS  # 5.33 ms per block
 K2_SUM_TOL, K2_TAIL_TOL = 1e-5, 1e-4
 K4_Y_TOL, K4_DAMPED_TOL = K2_SUM_TOL, K2_TAIL_TOL
 DBFS_TOL = -90.0
+# The file payload's analysis against the CPU's: one rounding step of the
+# shipped values (0.01 dB, 1e-4 chroma) plus float32's spacing at them.
+SPEC_TOL, CHROMA_TOL = 0.01 + 1e-5, 1e-4 + 1e-7
+WORK = ROOT / "build" / "chip_smoke"  # scratch files of the CLI phases (gitignored)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations per output sample (transcendentals count one each).
@@ -166,19 +189,20 @@ def device_ms(fn, kernel_names, reps):
     return ns / 1e6 / reps if ns else None
 
 
-def count_launches(run, need=(), per_block=None):
+def count_launches(run, need=(), per_block=None, exact=None):
     """Run one path from zeroed launch counters and read them just after.
     ``need``: kernels the path must launch (at least once, or exactly
-    ``per_block`` times).  Adds the counts to LAUNCHES."""
+    ``per_block`` times); ``exact``: {kernel: launches} the path must make.
+    Adds the counts to LAUNCHES."""
     for fn in COUNTERS.values():
         fn.launches = 0
     result = run()
     counts = {k: fn.launches for k, fn in COUNTERS.items()}
-    for k in need:
-        want_ok = counts[k] >= 1 if per_block is None else counts[k] == per_block
-        if not want_ok:
+    want = {k: per_block for k in need} | dict(exact or {})
+    for k, n in want.items():
+        if not (counts[k] >= 1 if n is None else counts[k] == n):
             raise AssertionError(f"{k} launched {counts[k]} times on this path "
-                                 f"(want {'>= 1' if per_block is None else per_block})")
+                                 f"(want {'>= 1' if n is None else n})")
     for k, v in counts.items():
         LAUNCHES[k] += v
     return result, counts
@@ -494,8 +518,308 @@ def streaming(name, cfg, mono, kernel=None):
           cpu_engine_wall_s=t_cpu)
 
 
+# -- the session layer and the CLI's batch and resumable modes ---------------
+
+def timed_phase(fn):
+    """Run one phase and return its wall time in seconds with its result."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def demo_files(demo):
+    """The three ragged files of the batch phases: the demo uncut, its
+    first 10 s and its last 7 s."""
+    return [demo, demo[:10 * FS], demo[-7 * FS:]]
+
+
+def batch_render(name, cfg, files, need):
+    """``render_batch`` on the card from zeroed counters (after one cold
+    call), each output against ``process_offline`` on the card and the CPU
+    port's ``render_batch``."""
+    render_batch(cfg, files, FS, device="cuda")  # cold: allocator, cuFFT plans
+
+    def warm():
+        t0 = time.perf_counter()
+        out = render_batch(cfg, files, FS, device="cuda")
+        return out, time.perf_counter() - t0
+
+    (outs, wall), counts = count_launches(warm, exact=need)
+    ref_cpu = render_batch(cfg, files, FS, device="cpu")
+    errs_single, errs_cpu = [], []
+    for f, out, cpu in zip(files, outs, ref_cpu):
+        if out.shape != (f.shape[0], 2) or not np.all(np.isfinite(out)):
+            raise AssertionError(f"render_batch {name}: bad output {out.shape}")
+        single = process_offline(cfg, f, FS, device="cuda")[1]
+        errs_single.append(err_dbfs(out, single))
+        errs_cpu.append(err_dbfs(out, cpu))
+    if max(errs_single + errs_cpu) > DBFS_TOL:
+        raise AssertionError(f"render_batch {name}: vs process_offline {errs_single}, "
+                             f"vs CPU {errs_cpu} dBFS > {DBFS_TOL}")
+    audio_s = sum(f.shape[0] for f in files) / FS
+    phase("render_batch", chain=name, files=[f.shape[0] for f in files], wall_s=wall,
+          audio_s=audio_s, realtime_x=audio_s / wall, launches=counts,
+          vs_process_offline_dbfs=errs_single, vs_cpu_dbfs=errs_cpu)
+    return outs
+
+
+def run_cli(*args):
+    """``python -m aefs_tpu_torch.cli`` in a subprocess from the checkout."""
+    proc = subprocess.run([sys.executable, "-m", "aefs_tpu_torch.cli", *map(str, args)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"cli {args[:2]} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc
+
+
+def cli_batch(files, work):
+    """--batch over the three files as a subprocess: its WAVs equal
+    ``render_batch``'s 16-bit encoding of the same decoded inputs."""
+    cfg_path = work / "flagship.json"
+    cfg_path.write_text(json.dumps(FLAGSHIP))
+    paths = []
+    for i, f in enumerate(files):
+        paths.append(work / f"batch_in_{i}.wav")
+        write_wav_file(str(paths[-1]), f, FS)
+    decoded = [read_wav_file(str(p))[0] for p in paths]
+    want = render_batch(FLAGSHIP, decoded, FS, device="cuda")
+    t0 = time.perf_counter()
+    proc = run_cli("--batch", work / "batch_out", *paths, "--config", cfg_path)
+    wall = time.perf_counter() - t0
+    for p, w in zip(paths, want):
+        if (work / "batch_out" / p.name).read_bytes() != encode_wav_int16(w, FS):
+            raise AssertionError(f"cli --batch: {p.name} differs from render_batch's encoding")
+    phase("cli_batch", files=len(paths), byte_equal=True, subprocess_wall_s=wall,
+          report=proc.stdout.strip().splitlines()[-1])
+
+
+def data_url(x):
+    return "data:audio/wav;base64," + base64.b64encode(encode_wav_int16(x, FS)).decode()
+
+
+def file_stream(mono):
+    """The flagship through ``start_file_stream(realtime=False)`` over 2 s:
+    the drained playback queue is bit-equal to a fresh card engine's block
+    loop, with ``octaver_step`` launched once per block."""
+    x = mono[:STREAM_BLOCKS * BLOCK]
+    url = data_url(x)
+    decoded = decode_wav(encode_wav_int16(x, FS))[0]
+    eng = AudioEngine(device="cuda")
+    eng.build_chain(FLAGSHIP)
+
+    def run():
+        if not eng.start_file_stream(url, realtime=False):
+            raise AssertionError("file stream did not start")
+        items = []
+        while True:
+            item = eng.playback_queue.get(timeout=300)
+            if item is None:
+                return items
+            items.append(item)
+
+    items, counts = count_launches(run, need=("octaver_step",), per_block=STREAM_BLOCKS)
+    eng._file_thread.join(timeout=60)
+    got = np.concatenate([b for _, b in items])
+    snap = eng.metrics.snapshot()
+    ref_eng = AudioEngine(device="cuda")
+    ref_eng.build_chain(FLAGSHIP)
+    lat = []
+    ref = []
+    for i in range(STREAM_BLOCKS):
+        t0 = time.perf_counter()
+        ref.append(ref_eng.process_stream_block(decoded[i * BLOCK:(i + 1) * BLOCK]))
+        lat.append(1000.0 * (time.perf_counter() - t0))
+    if not np.array_equal(got, np.concatenate(ref)):
+        raise AssertionError("file stream differs from the block loop on the card")
+    eng.close()
+    ref_eng.close()
+    phase("file_stream", chain="flagship", blocks=len(items), bitwise=True, launches=counts,
+          block_timer=snap, first_block_after_build_ms=lat[0],
+          second_block_ms=lat[1], loop_median_ms=statistics.median(lat))
+
+
+def pipelined(mono):
+    """375 flagship blocks through the pipelined step: bit-equal to the
+    synchronous run shifted by one block."""
+    blocks = [mono[i * BLOCK:(i + 1) * BLOCK] for i in range(STREAM_BLOCKS)]
+    sync_eng = AudioEngine(device="cuda")
+    sync_eng.build_chain(FLAGSHIP)
+    sync = [sync_eng.process_stream_block(b) for b in blocks]
+    eng = AudioEngine(device="cuda")
+    eng.build_chain(FLAGSHIP)
+    outs, counts = count_launches(
+        lambda: [eng.process_stream_block_pipelined(b) for b in blocks],
+        need=("octaver_step",), per_block=STREAM_BLOCKS)
+    if not np.all(outs[0] == 0):
+        raise AssertionError("pipelined: the priming block is not silent")
+    for k in range(1, STREAM_BLOCKS):
+        if not np.array_equal(outs[k], sync[k - 1]):
+            raise AssertionError(f"pipelined: block {k} is not the synchronous block {k - 1}")
+    phase("pipelined", chain="flagship", blocks=STREAM_BLOCKS, bitwise_shifted=True,
+          launches=counts, sync_timer=sync_eng.metrics.snapshot(),
+          pipelined_timer=eng.metrics.snapshot())
+
+
+def session_resume(mono, work):
+    """The flagship streams 300 blocks on the card and saves at block 150; a
+    fresh card engine resumes and continues bit-equal, the CPU engine
+    resumes the same directory and continues within DBFS_TOL."""
+    blocks = [mono[i * BLOCK:(i + 1) * BLOCK] for i in range(300)]
+    eng = AudioEngine(device="cuda")
+    eng.build_chain(FLAGSHIP)
+    for b in blocks[:150]:
+        eng.process_stream_block(b)
+    path = str(work / "session")
+    t0 = time.perf_counter()
+    eng.save_session(path)
+    save_s = time.perf_counter() - t0
+    want = np.concatenate([eng.process_stream_block(b) for b in blocks[150:]])
+    card = AudioEngine(device="cuda")
+    t0 = time.perf_counter()
+    card.resume_session(path)
+    resume_s = time.perf_counter() - t0
+    got, counts = count_launches(
+        lambda: np.concatenate([card.process_stream_block(b) for b in blocks[150:]]),
+        need=("octaver_step",), per_block=150)
+    if not np.array_equal(got, want):
+        raise AssertionError("session resume on the card is not bit-equal")
+    cpu = AudioEngine(device="cpu")
+    cpu.resume_session(path)
+    err = err_dbfs(np.concatenate([cpu.process_stream_block(b) for b in blocks[150:]]), got)
+    if not err <= DBFS_TOL:
+        raise AssertionError(f"session resume: card vs CPU {err:.1f} dBFS > {DBFS_TOL}")
+    phase("session_resume", chain="flagship", saved_at_block=150, continued=150,
+          bitwise=True, launches=counts, vs_cpu_dbfs=err, save_s=save_s, resume_s=resume_s)
+
+
+def uploads(mono):
+    """An uploaded IR on "Concert Hall (Convolution)" and a noise profile
+    learned from a WAV on "Clean Noise Removal": 100 streaming blocks each,
+    card against the CPU engine."""
+    rng = np.random.default_rng(7)
+    ir = (0.2 * rng.standard_normal((FS // 2, 2))
+          * np.exp(-np.arange(FS // 2) / (0.1 * FS))[:, None]).astype(np.float32)
+    room = (0.02 * rng.standard_normal((FS, 1))).astype(np.float32)
+    blocks = [mono[i * BLOCK:(i + 1) * BLOCK] for i in range(100)]
+    for preset, eid, upload in (
+            ("Concert Hall (Convolution)", "convreverb", lambda e, i: e.set_ir(i, data_url(ir))),
+            ("Clean Noise Removal", "spectral",
+             lambda e, i: e.learn_noise(i, contents=data_url(room)))):
+        cfg = DEFAULT_PRESETS[preset]
+        target = next(c["effect_id"] for c in cfg if c["type"] == eid)
+        outs, result = [], None
+        for dev in ("cuda", "cpu"):
+            eng = AudioEngine(device=dev)
+            eng.build_chain(cfg)
+            result = upload(eng, target)
+            run = lambda: np.concatenate([eng.process_stream_block(b) for b in blocks])  # noqa: E731
+            outs.append(count_launches(run)[0] if dev == "cuda" else run())
+        err = err_dbfs(outs[0], outs[1])
+        if not (err <= DBFS_TOL and np.all(np.isfinite(outs[0]))):
+            raise AssertionError(f"uploads {preset}: card vs CPU {err:.1f} dBFS > {DBFS_TOL}")
+        phase("uploads", chain=preset, upload="ir" if eid == "convreverb" else "noise_profile",
+              result=result, blocks=100, vs_cpu_dbfs=err)
+
+
+def cli_checkpoint(demo, work):
+    """--checkpoint-every 4 over the uncut demo: an uninterrupted run (in
+    this process, from zeroed counters: ``octaver_step`` once per 4096
+    superblock), and a subprocess SIGKILLed once progress.json names a
+    generation, then rerun with --resume: the WAVs are byte-equal."""
+    from aefs_tpu_torch import cli
+
+    src = work / "demo.wav"
+    write_wav_file(str(src), demo, FS)
+    cfg_path = work / "flagship.json"
+    cfg_path.write_text(json.dumps(FLAGSHIP))
+    common = ["--config", str(cfg_path), "--checkpoint-every", "4", "--device", "cuda"]
+    superblocks = -(-demo.shape[0] // 4096)
+
+    def ref_run():
+        t0 = time.perf_counter()
+        cli.main([str(src), str(work / "ref.wav"), "--checkpoint", str(work / "ck_ref"), *common])
+        return time.perf_counter() - t0
+
+    ref_s, counts = count_launches(ref_run, need=("octaver_step",), per_block=superblocks)
+    ck = work / "ck"
+    cmd = [sys.executable, "-m", "aefs_tpu_torch.cli", str(src), str(work / "out.wav"),
+           "--checkpoint", str(ck), *common]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        deadline = time.monotonic() + 300
+        while not (ck / "progress.json").exists():
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"cli --checkpoint: no generation before exit "
+                                     f"({proc.returncode}): {proc.stderr.read()[-2000:]}")
+            time.sleep(0.01)
+        proc.send_signal(signal.SIGKILL)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+        proc.stderr.close()
+    if proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"cli --checkpoint ended with {proc.returncode} before the kill")
+    killed_at = json.loads((ck / "progress.json").read_text())["done_samples"]
+    t0 = time.perf_counter()
+    resumed = run_cli(*cmd[3:], "--resume")
+    resume_s = time.perf_counter() - t0
+    if "Resuming at" not in resumed.stdout:
+        raise AssertionError("cli --resume did not resume")
+    if (work / "out.wav").read_bytes() != (work / "ref.wav").read_bytes():
+        raise AssertionError("cli --checkpoint: the resumed WAV differs")
+    phase("cli_checkpoint", chain="flagship", frames=demo.shape[0], killed_at=killed_at,
+          byte_equal=True, launches=counts, superblocks=superblocks,
+          uninterrupted_wall_s=ref_s, resume_subprocess_wall_s=resume_s)
+
+
+def wav_upload(demo):
+    """The demo's data URL through ``process_wav_file`` on the card with a
+    fake websocket: the payload decodes, its WAV is ``process_file_array``'s
+    int16 encoding, and its analysis is within the CPU test's bars of the
+    CPU ``PlotAnalyzer``."""
+    class FakeWS:
+        sent = []
+
+        async def send(self, msg):
+            self.sent.append(msg)
+
+    eng = AudioEngine(device="cuda")
+    eng.build_chain(FLAGSHIP)
+    url = data_url(demo)
+    audio = decode_wav(encode_wav_int16(demo, FS))[0]
+
+    def run():
+        t0 = time.perf_counter()
+        asyncio.run(eng.process_wav_file(url, FakeWS()))
+        return time.perf_counter() - t0
+
+    wall, counts = count_launches(run, exact={"comb_sums": 1})
+    if len(FakeWS.sent) != 1:
+        raise AssertionError("process_wav_file sent no payload")
+    msg = json.loads(FakeWS.sent[0])
+    mono, processed = eng.process_file_array(audio, FS)
+    wav = base64.b64decode(msg["processed_b64"].split(",")[1])
+    if wav != encode_wav_int16(processed, FS) or msg["sample_rate"] != FS:
+        raise AssertionError("process_wav_file: processed_b64 differs from process_file_array's")
+    ref = PlotAnalyzer(FS, device="cpu").analyze_file(mono[:, 0], processed.mean(axis=1))
+    worst = {"spectrum_db": 0.0, "chroma": 0.0}
+    for k in ("original", "processed"):
+        s_got = np.asarray(msg["analysis"][k]["spectrum_db"])
+        s_ref = np.asarray(ref[k]["spectrum_db"])
+        worst["spectrum_db"] = max(worst["spectrum_db"],
+                                   float(np.max(np.abs(s_got - s_ref)[s_ref > -100])))
+        worst["chroma"] = max(worst["chroma"], float(np.max(np.abs(
+            np.subtract(msg["analysis"][k]["chroma"], ref[k]["chroma"])))))
+    if worst["spectrum_db"] > SPEC_TOL or worst["chroma"] > CHROMA_TOL:
+        raise AssertionError(f"process_wav_file analysis vs CPU: {worst}")
+    phase("process_wav_file", chain="flagship", frames=demo.shape[0], wall_s=wall,
+          payload_bytes=len(FakeWS.sent[0]), launches=counts, windows=len(s_got),
+          analysis_vs_cpu=worst)
+
+
 def main():
-    name, _ = probe()
+    card, _ = probe()
     dev = torch.device("cuda")
     build()
     demo, fs = read_wav_file(str(DEMO))
@@ -524,6 +848,27 @@ def main():
     for preset in ("Concert Hall (Convolution)", "Multiband Master"):
         streaming(preset, DEFAULT_PRESETS[preset], mono)
 
+    # The session layer and the CLI's batch and resumable modes.
+    shutil.rmtree(WORK, ignore_errors=True)
+    WORK.mkdir(parents=True)
+    files = demo_files(demo)
+    walls = {}
+    for chain, cfg, need in (("flagship", FLAGSHIP, {"comb_sums": 3}),
+                             ("Lush Chorus", DEFAULT_PRESETS["Lush Chorus"],
+                              {"comb_sums": 3, "chorus_step": 3})):
+        _, walls[f"render_batch {chain}"] = timed_phase(
+            lambda: batch_render(chain, cfg, files, need))
+    for step, fn in (("cli_batch", lambda: cli_batch(files, WORK)),
+                     ("file_stream", lambda: file_stream(mono)),
+                     ("pipelined", lambda: pipelined(mono)),
+                     ("session_resume", lambda: session_resume(mono, WORK)),
+                     ("uploads", lambda: uploads(mono)),
+                     ("cli_checkpoint", lambda: cli_checkpoint(demo, WORK)),
+                     ("process_wav_file", lambda: wav_upload(demo))):
+        _, walls[step] = timed_phase(fn)
+    phase("session_layer_walls", seconds=walls, total_s=sum(walls.values()))
+    shutil.rmtree(WORK, ignore_errors=True)
+
     print(json.dumps({"kernels": [
         {"name": "octaver_step", "route": "cuda", "source": "aefs_tpu_torch/csrc/resample.cu",
          "replaces": "aefs_tpu/ops/pallas/resample.py:133", "launches": LAUNCHES["octaver_step"],
@@ -536,7 +881,7 @@ def main():
         {"name": "comb_chunks", "route": "cuda", "source": "aefs_tpu_torch/csrc/comb.cu",
          "replaces": "aefs_tpu/ops/pallas/comb.py:62", "launches": LAUNCHES["comb_chunks"], **k4},
     ]}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}),
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": 1}}),
           flush=True)
     return 0
 

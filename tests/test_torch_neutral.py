@@ -16,7 +16,8 @@ FORBIDDEN = {"jax", "jaxlib", "aefs_tpu", "__graft_entry__"}
 
 
 @pytest.mark.parametrize(
-    "rel", ["core/config.py", "core/multiband.py", "engine/wavio.py", "native.py"])
+    "rel", ["core/config.py", "core/multiband.py", "engine/wavio.py", "native.py",
+            "utils/tempo.py", "engine/devices.py"])
 def test_copied_file_matches_original(rel):
     """Equal once imports of ``aefs_tpu.`` / ``from aefs_tpu import`` name
     the port instead."""
@@ -41,6 +42,15 @@ def _imported_roots(path):
 def test_no_jax_import(rel):
     bad = sorted(set(_imported_roots(ROOT / rel)) & FORBIDDEN)
     assert not bad, (rel, bad)
+
+
+@pytest.mark.parametrize("rel", [
+    "aefs_tpu_torch/engine/checkpoint.py", "aefs_tpu_torch/engine/devices.py",
+    "aefs_tpu_torch/utils/analysis.py", "aefs_tpu_torch/utils/metrics.py",
+    "aefs_tpu_torch/utils/platform.py", "aefs_tpu_torch/utils/tempo.py"])
+def test_scan_covers_session_layer_modules(rel):
+    """The import scan above walks every module of the port, these too."""
+    assert rel in PORT_FILES
 
 
 def test_flagship_copy_matches_driver_entry():
