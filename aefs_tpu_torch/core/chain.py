@@ -9,6 +9,12 @@ smoothed parameter currents — lives in one state tree:
 
 PyTorch runs eagerly, so there is no compile cache: a block is a sequence
 of tensor ops (and kernel launches) issued on the chain's device.
+
+The serving pool steps many streams at once through the same
+``process_block`` with a leading slot axis written out (JAX vmaps it):
+x (S, ci, N), every state leaf (S, ...) but the lockstep counters, and
+targets (S,).  ``state_axes``, ``batch_state`` and ``graft_slot_state``
+build and edit such a batched state.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import numpy as np
 import torch
 
 from aefs_tpu_torch.core.params import smooth_all
+from aefs_tpu_torch.models.base import tree_map
 
 
 class Chain:
@@ -41,6 +48,39 @@ class Chain:
             params.append(model.initial_params(configs.get(eid, {})))
         return {"fx": tuple(fx), "params": tuple(params)}
 
+    def state_axes(self, batch_axis: int = 0):
+        """Slot axis of every leaf of a batched state: ``batch_axis``
+        everywhere except each model's LOCKSTEP_STATE leaves (None), pure
+        per-block counters identical in every stream when all streams step
+        together (the delay's shared ring row)."""
+        fx = tuple(model.state_axes_tree(batch_axis) for eid, model in self.effects)
+        return {"fx": fx, "params": batch_axis}
+
+    def batch_state(self, one, n_streams: int):
+        """Broadcast a single-stream state to ``n_streams`` slots, keeping
+        LOCKSTEP_STATE leaves unbatched.  Every leaf is a copy: ``one`` may
+        be a shared fresh-state template."""
+        def bcast(leaf):
+            return leaf.unsqueeze(0).expand((n_streams,) + leaf.shape).clone()
+
+        fx = tuple(model.map_state(bcast, torch.clone, st)
+                   for (eid, model), st in zip(self.effects, one["fx"]))
+        return {"fx": fx, "params": tree_map(bcast, one["params"])}
+
+    def graft_slot_state(self, batched, single, slot: int):
+        """A batched state with ``single``'s state written into ``slot``
+        (pool slot reset).  LOCKSTEP_STATE leaves keep the shared running
+        counter: a freshly zeroed ring is self-consistent from any row, and
+        resetting the shared row would desync the other slots."""
+        def put(b, s):
+            b = b.clone()
+            b[slot] = s
+            return b
+
+        fx = tuple(model.map_state(put, lambda b, s: b, bst, sst)
+                   for (eid, model), bst, sst in zip(self.effects, batched["fx"], single["fx"]))
+        return {"fx": fx, "params": tree_map(put, batched["params"], single["params"])}
+
     def targets(self, per_effect: dict):
         """Targets tree (tuple of dicts of 0-dim tensors, chain order) from a
         host-side {effect_id: {param: float}} map; missing params fall back
@@ -58,15 +98,15 @@ class Chain:
     # -- processing -----------------------------------------------------
     def _fan_in(self, x):
         """Channel fan (core.py:147-154): mono->stereo duplicates, otherwise
-        copy the common channels and zero the rest."""
+        copy the common channels and zero the rest.  x: (..., ci, N)."""
         if self.ci == 1 and self.co == 2:
-            return torch.cat([x, x], 0)
+            return torch.cat([x, x], -2)
         ch = min(self.ci, self.co)
         pad = self.co - ch
         if pad:
-            z = torch.zeros((pad, x.shape[-1]), dtype=x.dtype, device=x.device)
-            return torch.cat([x[:ch], z], 0)
-        return x[:ch]
+            z = torch.zeros(x.shape[:-2] + (pad, x.shape[-1]), dtype=x.dtype, device=x.device)
+            return torch.cat([x[..., :ch, :], z], -2)
+        return x[..., :ch, :]
 
     def _process(self, state, targets, x, method):
         buf = self._fan_in(x)
@@ -79,7 +119,8 @@ class Chain:
         return {"fx": tuple(new_fx), "params": tuple(new_params)}, buf
 
     def process_block(self, state, targets, x):
-        """x: (ci, N) float32 tensor -> (new_state, (co, N))."""
+        """x: (ci, N) float32 tensor -> (new_state, (co, N)); with a leading
+        slot axis on x, state and targets, (S, ci, N) -> (S, co, N)."""
         return self._process(state, targets, x, "process")
 
     def process_whole(self, state, targets, x):

@@ -3,7 +3,8 @@
 The smoothed current value of every live parameter is carried in the
 chain state as a 0-dim float32 tensor and stepped toward its target once
 per block — the reference's ``SmoothParam.step_towards`` (core.py:72-77)
-as a pure function.
+as a pure function.  Every step is elementwise, so a pool's (S,) currents
+and targets smooth slot by slot in the same ops.
 """
 
 from __future__ import annotations
@@ -43,6 +44,12 @@ class ParamSpec:
 
     def clamp(self, value: float) -> float:
         return min(max(float(value), self.lo), self.hi)
+
+
+def lead(v, k: int = 1):
+    """``v`` with ``k`` trailing unit axes when it carries slot dims (so an
+    (S,) param meets an (S, ..., N) signal); a 0-dim ``v`` unchanged."""
+    return v.reshape(v.shape + (1,) * k) if v.dim() else v
 
 
 def smooth_step(current, target, max_step):

@@ -31,6 +31,12 @@
 // device per launch (H100 80GB HBM3, 700 W).  A file call (the +7 st
 // render) runs the same kernel over tiles of kTile outputs.
 //
+// Slot grid (the serving pool): the grid is (tiles, S), one column of
+// thread blocks per slot, each slot with its own semitones, mix and phase
+// state, so the S serial prologues run side by side in one launch and the
+// launch count per pool step stays 1 at any S.  Outputs are slot-major,
+// the six state scalars as (6, S) rows.
+//
 // Kernel K3: the chorus's whole block step in one launch (chorus_step).
 //
 // Replaces the TPU kernel aefs_tpu/ops/pallas/resample.py:_resample_kernel
@@ -43,7 +49,9 @@
 // one thread the phase advance.  Bound like K1 at 2 x 256 (42.6 KB, 12.7
 // ns; 3.0 us on the device per launch); a whole file (2 x 892,800, 14.4
 // MB, 4.3 us) is a grid of tiles, each staging kTile + history samples per
-// row (15.3 us; both on an H100 80GB HBM3, 700 W).
+// row (15.3 us; both on an H100 80GB HBM3, 700 W).  The pool's slots are
+// more rows: the grid is (tiles, S * C), row r = slot * C + channel, and
+// the phase pair is written as (2, S) rows.
 
 #include <cuda_runtime.h>
 
@@ -161,10 +169,11 @@ __device__ __forceinline__ void stage(float* win, int lo, int hi,
     win[i - lo] = i < size ? hist[i] : v(i - size);
 }
 
-// out = [y (c, n) | ring (size,) | n_abs (int32 bits), base_hi, base_lo,
-//        semi_prev, step_hi, step_lo].  x rows are ldx apart.
+// out = [y (S, c, n) | ring (S, size) | (6, S): n_abs (int32 bits),
+//        base_hi, base_lo, semi_prev, step_hi, step_lo].  Slot z's x rows
+// start z * ldxs and are ldx apart; its ring and scalars are slot-major.
 __global__ void __launch_bounds__(kThreads) octaver_step_kernel(
-    const float* __restrict__ x, long long ldx, int c, int n,
+    const float* __restrict__ x, long long ldxs, long long ldx, int c, int n,
     const float* __restrict__ hist, int size,
     const float* __restrict__ semitones, const float* __restrict__ mix_p,
     const int* __restrict__ n_abs, const float* __restrict__ base_hi,
@@ -177,16 +186,21 @@ __global__ void __launch_bounds__(kThreads) octaver_step_kernel(
   __shared__ int s_n0;
 
   const int tid = threadIdx.x;
+  const int z = blockIdx.y;  // the slot
+  const int slots = gridDim.y;
   const int t0 = blockIdx.x * kTile;
   const int lo = t0 + 1;  // every read of outputs t0.. lies in [t0 + 1, .)
   const int hi = min(t0 + kTile + size, size + n);
-  float* new_hist = out + (long long)c * n;
-  float* scal = new_hist + size;
+  x += z * ldxs;
+  hist += (long long)z * size;
+  float* scal = out + (long long)slots * (c * n + size) + z;  // row k at scal[k * slots]
+  float* new_hist = out + (long long)slots * c * n + (long long)z * size;
+  out += (long long)z * c * n;
   const bool first = blockIdx.x == 0;
 
   if (tid == 0) {
     // The step (1 - 2^(s/12)) / size in double-single and its levels.
-    const float semi = *semitones;
+    const float semi = semitones[z];
     const DS ratio = ds_exp2_div12(semi);
     const float size_f = (float)size;
     const DS d = two_sum(1.0f, -ratio.hi);
@@ -199,20 +213,20 @@ __global__ void __launch_bounds__(kThreads) octaver_step_kernel(
     s_strides[1] = lift(s_strides[0]);
     s_strides[2] = lift(s_strides[1]);
     if (first) {
-      scal[3] = semi;
-      scal[4] = sh;
-      scal[5] = sl;
+      scal[3 * slots] = semi;
+      scal[4 * slots] = sh;
+      scal[5 * slots] = sl;
     }
   } else if (tid == 32) {
     // The re-anchor: fold the previous step over n_abs on a semitone
     // change or past 2^28 samples.
-    const int na = *n_abs;
-    const bool refold = (*semitones != *semi_prev) || (na >= (1 << 28));
-    DS base = {*base_hi, *base_lo};
+    const int na = n_abs[z];
+    const bool refold = (semitones[z] != semi_prev[z]) || (na >= (1 << 28));
+    DS base = {base_hi[z], base_lo[z]};
     int n0 = na;
     if (refold) {
       DS prev[3];
-      prev[0] = DS{*step_hi, *step_lo};
+      prev[0] = DS{step_hi[z], step_lo[z]};
       prev[1] = lift(prev[0]);
       prev[2] = lift(prev[1]);
       const DS acc = phase_accum(na, prev, base);
@@ -223,8 +237,8 @@ __global__ void __launch_bounds__(kThreads) octaver_step_kernel(
     s_n0 = n0;
     if (first) {
       reinterpret_cast<int*>(scal)[0] = n0 + n;
-      scal[1] = base.hi;
-      scal[2] = base.lo;
+      scal[slots] = base.hi;
+      scal[2 * slots] = base.lo;
     }
   }
   // mono = torch.mean(x, 0): (x0 + x1) * 0.5 for two channels.
@@ -240,7 +254,7 @@ __global__ void __launch_bounds__(kThreads) octaver_step_kernel(
   const DS strides[3] = {s_strides[0], s_strides[1], s_strides[2]};
   const DS base = s_base;
   const int n0 = s_n0;
-  const float mix = *mix_p;
+  const float mix = mix_p[z];
   const float omm = 1.0f - mix;
   const float size_f = (float)size;
   const aefs::Window w{win, lo};
@@ -259,10 +273,11 @@ __global__ void __launch_bounds__(kThreads) octaver_step_kernel(
   }
 }
 
-// out = [y (c, n) | history (c, hl) | ph_hi, ph_lo].  One thread block per
-// (tile, channel row); x rows are ldx apart.
+// out = [y (S, c, n) | history (S, c, hl) | (2, S): ph_hi, ph_lo].  One
+// thread block per (tile, row), row r = slot * c + channel; slot z's x rows
+// start z * ldxs and are ldx apart.
 __global__ void __launch_bounds__(kThreads) chorus_step_kernel(
-    const float* __restrict__ x, long long ldx, int c, int n,
+    const float* __restrict__ x, long long ldxs, long long ldx, int c, int n,
     const float* __restrict__ hist, int hl, float fs,
     const float* __restrict__ rate, const float* __restrict__ depth_p,
     const float* __restrict__ base_p, const float* __restrict__ mix_p,
@@ -270,32 +285,36 @@ __global__ void __launch_bounds__(kThreads) chorus_step_kernel(
     const float* __restrict__ ph_lo, float* __restrict__ out) {
   extern __shared__ float win[];
   const int tid = threadIdx.x;
-  const int row = blockIdx.y;
+  const int r = blockIdx.y;
+  const int rows = gridDim.y;
+  const int z = r / c;        // the slot
+  const int row = r - z * c;  // the channel
   const int t0 = blockIdx.x * kTile;
   const int lo = t0 + 1;
   const int hi = min(t0 + kTile + hl, hl + n);
-  const float* xr = x + row * ldx;
-  float* new_hist = out + (long long)c * n;
+  const float* xr = x + z * ldxs + row * ldx;
+  float* new_hist = out + (long long)rows * n;
+  float* tail = new_hist + (long long)rows * hl;
 
-  stage(win, lo, hi, hist + (long long)row * hl, hl,
+  stage(win, lo, hi, hist + (long long)r * hl, hl,
         [&](int k) { return xr[k]; });
-  const float dph = *rate / fs;  // lfo.py: rate_hz / fs, IEEE
-  const float phi = *ph_hi, plo = *ph_lo;
+  const float dph = rate[z] / fs;  // lfo.py: rate_hz / fs, IEEE
+  const float phi = ph_hi[z], plo = ph_lo[z];
   if (row == 0 && blockIdx.x == 0 && tid == 0) {
     // lfo_advance: the pair n samples on, hi wrapped into [0, 1).
     const DS t = two_sum(phi, plo + (float)n * dph);
-    new_hist[(long long)c * hl] = t.hi - floorf(t.hi);
-    new_hist[(long long)c * hl + 1] = t.lo;
+    tail[z] = t.hi - floorf(t.hi);
+    tail[rows / c + z] = t.lo;
   }
   __syncthreads();
 
   if (blockIdx.x == gridDim.x - 1) {
     for (int i = tid; i < hl; i += kThreads)
-      new_hist[(long long)row * hl + i] = win[n + i - lo];
+      new_hist[(long long)r * hl + i] = win[n + i - lo];
   }
-  const float spread = *spread_p * (float)row;
-  const float base = *base_p, depth = *depth_p;
-  const float mix = *mix_p;
+  const float spread = spread_p[z] * (float)row;
+  const float base = base_p[z], depth = depth_p[z];
+  const float mix = mix_p[z];
   const float omm = 1.0f - mix;
   const float fs_ms = fs / 1000.0f;
   const float max_ago = (float)(hl - 2);
@@ -307,7 +326,7 @@ __global__ void __launch_bounds__(kThreads) chorus_step_kernel(
     const float delay_ms = base + depth * sn;
     const float ago = fminf(fmaxf(delay_ms * fs_ms, 2.0f), max_ago);
     const float tap = aefs::tap_read(w, hl, n, j, ago);
-    out[(long long)row * n + j] = omm * xr[j] + mix * tap;
+    out[(long long)r * n + j] = omm * xr[j] + mix * tap;
   }
 }
 
@@ -329,44 +348,50 @@ int launched() {
 
 }  // namespace
 
-// Kernel K1.  x (c, n) float32 rows ldx apart, c in {1, 2}; hist (size,);
-// semitones, mix, base_hi, base_lo, semi_prev, step_hi, step_lo 0-dim
-// float32; n_abs 0-dim int32; out (c*n + size + 6) float32.  Launches on
-// ``stream``; returns the CUDA error code (0 on success).
-extern "C" int aefs_octaver_step(const float* x, long long ldx, int c, int n,
-                                 const float* hist, int size,
-                                 const float* semitones, const float* mix,
-                                 const int* n_abs, const float* base_hi,
-                                 const float* base_lo, const float* semi_prev,
-                                 const float* step_hi, const float* step_lo,
-                                 float* out, cudaStream_t stream) {
-  if (c < 1 || c > 2 || n < 1 || size < 4) return (int)cudaErrorInvalidValue;
+// Kernel K1.  x (S, c, n) float32, slots ldxs apart and rows ldx apart,
+// c in {1, 2}; hist (S, size); semitones, mix, base_hi, base_lo,
+// semi_prev, step_hi, step_lo (S,) float32; n_abs (S,) int32; out
+// (S * (c*n + size + 6)) float32.  S = 1 is the single-stream step.
+// Launches on ``stream``; returns the CUDA error code (0 on success).
+extern "C" int aefs_octaver_step(const float* x, long long ldxs, long long ldx,
+                                 int c, int n, int slots, const float* hist,
+                                 int size, const float* semitones,
+                                 const float* mix, const int* n_abs,
+                                 const float* base_hi, const float* base_lo,
+                                 const float* semi_prev, const float* step_hi,
+                                 const float* step_lo, float* out,
+                                 cudaStream_t stream) {
+  if (c < 1 || c > 2 || n < 1 || size < 4 || slots < 1 || slots > 65535)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(kTile + size) * sizeof(float);
   const cudaError_t e = allow_smem(octaver_step_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  octaver_step_kernel<<<(n + kTile - 1) / kTile, kThreads, smem, stream>>>(
-      x, ldx, c, n, hist, size, semitones, mix, n_abs, base_hi, base_lo,
+  const dim3 grid((n + kTile - 1) / kTile, slots);
+  octaver_step_kernel<<<grid, kThreads, smem, stream>>>(
+      x, ldxs, ldx, c, n, hist, size, semitones, mix, n_abs, base_hi, base_lo,
       semi_prev, step_hi, step_lo, out);
   return launched();
 }
 
-// Kernel K3.  x (c, n) float32 rows ldx apart; hist (c, hl); rate, depth,
-// base, mix, spread, ph_hi, ph_lo 0-dim float32; out (c*n + c*hl + 2)
-// float32.  Launches on ``stream``; returns the CUDA error code.
-extern "C" int aefs_chorus_step(const float* x, long long ldx, int c, int n,
-                                const float* hist, int hl, float fs,
-                                const float* rate, const float* depth,
-                                const float* base, const float* mix,
-                                const float* spread, const float* ph_hi,
-                                const float* ph_lo, float* out,
-                                cudaStream_t stream) {
-  if (c < 1 || c > 65535 || n < 1 || hl < 4) return (int)cudaErrorInvalidValue;
+// Kernel K3.  x (S, c, n) float32, slots ldxs apart and rows ldx apart;
+// hist (S, c, hl); rate, depth, base, mix, spread, ph_hi, ph_lo (S,)
+// float32; out (S * (c*n + c*hl + 2)) float32.  S = 1 is the
+// single-stream step.  Launches on ``stream``; returns the CUDA error code.
+extern "C" int aefs_chorus_step(const float* x, long long ldxs, long long ldx,
+                                int c, int n, int slots, const float* hist,
+                                int hl, float fs, const float* rate,
+                                const float* depth, const float* base,
+                                const float* mix, const float* spread,
+                                const float* ph_hi, const float* ph_lo,
+                                float* out, cudaStream_t stream) {
+  if (c < 1 || slots < 1 || (long long)c * slots > 65535 || n < 1 || hl < 4)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(kTile + hl) * sizeof(float);
   const cudaError_t e = allow_smem(chorus_step_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n + kTile - 1) / kTile, c);
+  const dim3 grid((n + kTile - 1) / kTile, c * slots);
   chorus_step_kernel<<<grid, kThreads, smem, stream>>>(
-      x, ldx, c, n, hist, hl, fs, rate, depth, base, mix, spread, ph_hi,
+      x, ldxs, ldx, c, n, hist, hl, fs, rate, depth, base, mix, spread, ph_hi,
       ph_lo, out);
   return launched();
 }

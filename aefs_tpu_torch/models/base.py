@@ -10,13 +10,20 @@ state is an explicit tree of dicts/tuples of tensors threaded through
 
 ``params`` is a dict of 0-dim float32 tensors — the smoothed current
 values, advanced once per block by the chain (core/params.py).
+
+``process`` also takes a leading slot axis, the pool's batch of streams
+written out (JAX vmaps the same step): x (S, C, N), params (S,), and every
+state leaf (S, ...) except the LOCKSTEP_STATE leaves, which stay shared.
+``lead`` gives a param the trailing unit axes it needs to meet a signal;
+a 0-dim value passes unchanged, so the single-stream step runs exactly the
+ops it ran before.
 """
 
 from __future__ import annotations
 
 import torch
 
-from aefs_tpu_torch.core.params import ParamSpec, init_params
+from aefs_tpu_torch.core.params import ParamSpec, init_params, lead  # noqa: F401
 
 
 def tree_map(f, tree, *rest):
@@ -42,8 +49,8 @@ class EffectModel:
     kind: str = ""
     PARAMS: dict[str, ParamSpec] = {}
     # Top-level state keys that are pure per-block counters: they advance
-    # identically in every stream whenever all streams step together.  A
-    # batched stepper keeps them unbatched (the pool PR adds the slot axis).
+    # identically in every stream whenever all streams step together, so a
+    # batched step keeps them unbatched (Chain.state_axes).
     LOCKSTEP_STATE: tuple = ()
 
     def __init__(self, fs: int, blocksize: int, channels: int = 2,
@@ -76,13 +83,19 @@ class EffectModel:
             for k, v in st.items()
         }
 
+    def state_axes_tree(self, batch_axis: int = 0):
+        """Per-leaf slot axis matching ``init_state``'s structure:
+        ``batch_axis`` everywhere except LOCKSTEP_STATE leaves (None)."""
+        return self.map_state(lambda _: batch_axis, lambda _: None, self.init_state())
+
     # -- to implement ---------------------------------------------------
     def init_state(self):
         """Return the effect's state tree (all-zero history)."""
         return {}
 
     def process(self, state, p, x):
-        """Pure block transform: (state, params, (C, N)) -> (state, (C, N))."""
+        """Pure block transform: (state, params, (C, N)) -> (state, (C, N)),
+        or the same with a leading slot axis on x, params and state."""
         raise NotImplementedError
 
     def process_file(self, state, p, x):

@@ -21,14 +21,14 @@ from __future__ import annotations
 import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.base import EffectModel, lead
 from aefs_tpu_torch.models.lfo import f64
 from aefs_tpu_torch.models.ringmod import advance_u32, phase_ramp_u32, phase_step_u32, u32_zero
 from aefs_tpu_torch.ops.scan import affine_hillis
 
 
 def exact_exp2(e):
-    """2^e for a float32 0-dim ``e`` in [0, 127): an exact power of two
+    """2^e for float32 ``e`` in [0, 127) (elementwise): an exact power of two
     (built from its exponent bits) times exp2 of the fractional part."""
     k = torch.floor(e)
     pow2 = ((k.to(torch.int32) + 127) << 23).view(torch.float32)
@@ -51,14 +51,15 @@ class Bitcrusher(EffectModel):
         }
 
     def process(self, state, p, x):
-        c, n = x.shape
+        n = x.shape[-1]
         num = phase_step_u32(p["rate_hz"], self.fs)
         ramp = phase_ramp_u32(state["acc"], num, n)
-        fresh = (ramp < num).to(torch.float32)[None, :]
+        fresh = (ramp < lead(num)).to(torch.float32)[..., None, :]
 
-        levels = exact_exp2(p["bits"] - 1.0)
+        levels = lead(exact_exp2(p["bits"] - 1.0), 2)
         q = torch.round(x * levels) / levels
 
-        held = affine_hillis(1.0 - fresh, fresh * q, state["held"][:, None])
-        y = (1.0 - p["mix"]) * x + p["mix"] * held
-        return {"acc": advance_u32(state["acc"], num, n), "held": held[:, -1]}, y
+        held = affine_hillis(1.0 - fresh, fresh * q, state["held"][..., None])
+        mix = lead(p["mix"], 2)
+        y = (1.0 - mix) * x + mix * held
+        return {"acc": advance_u32(state["acc"], num, n), "held": held[..., -1]}, y

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.base import EffectModel, lead
 from aefs_tpu_torch.models.lfo import f64
 from aefs_tpu_torch.ops.scan import (
     affine_hillis,
@@ -57,20 +57,22 @@ class Compressor(EffectModel):
         return 1.0 - f64(torch.exp, torch.full_like(t, -2.2) / (t * float(self.fs)))
 
     def process(self, state, p, x):
-        att = self._coeff(p["attack_ms"])
-        rho = 1.0 - self._coeff(p["release_ms"])  # release multiplier
+        att = lead(self._coeff(p["attack_ms"]))
+        rho = lead(1.0 - self._coeff(p["release_ms"]))  # release multiplier
 
-        level = torch.amax(torch.abs(x), 0)  # stereo-linked peak
-        long = x.shape[-1] >= 4096
-        peak = (maxtimes_scan_long if long else maxtimes_hillis)(rho, level, state["peak"])
+        level = torch.amax(torch.abs(x), -2)  # stereo-linked peak
+        # The two-level long scans are single-stream (file mode).
+        long = x.dim() == 2 and x.shape[-1] >= 4096
+        peak = (maxtimes_scan_long if long else maxtimes_hillis)(rho, level,
+                                                                 lead(state["peak"]))
         env = (affine_scan_long if long else affine_hillis)(1.0 - att, att * peak,
-                                                            state["env"])
+                                                            lead(state["env"]))
 
         # Soft-knee gain computer (Giannoulis eq. 4), branch-free.
-        o = 20.0 * torch.log10(torch.clamp(env, min=_ENV_FLOOR)) - p["threshold_db"]
-        w = torch.clamp(p["knee_db"], min=1e-6)
-        slope = 1.0 / torch.clamp(p["ratio"], min=1.0) - 1.0
+        o = 20.0 * torch.log10(torch.clamp(env, min=_ENV_FLOOR)) - lead(p["threshold_db"])
+        w = lead(torch.clamp(p["knee_db"], min=1e-6))
+        slope = lead(1.0 / torch.clamp(p["ratio"], min=1.0) - 1.0)
         t = torch.minimum(torch.clamp(o + 0.5 * w, min=0.0), w)
         g_db = slope * (t * t / (2.0 * w) + torch.clamp(o - 0.5 * w, min=0.0))
-        gain = torch.pow(10.0, (g_db + p["makeup_db"]) / torch.full_like(w, 20.0))
-        return {"peak": peak[-1], "env": env[-1]}, x * gain[None, :]
+        gain = torch.pow(10.0, (g_db + lead(p["makeup_db"])) / torch.full_like(w, 20.0))
+        return {"peak": peak[..., -1], "env": env[..., -1]}, x * gain[..., None, :]

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.base import EffectModel, lead
 from aefs_tpu_torch.ops.fftops import partition_ir, partitioned_fft_conv, rfft_last
 
 
@@ -77,7 +77,7 @@ class ConvReverb(EffectModel):
         }
 
     def _mix(self, p, x, wet):
-        return torch.clamp(p["mix_dry"] * x + p["mix_wet"] * wet, -1.0, 1.0)
+        return torch.clamp(lead(p["mix_dry"], 2) * x + lead(p["mix_wet"], 2) * wet, -1.0, 1.0)
 
     def process(self, state, p, x):
         wet, spec_hist, in_tail = partitioned_fft_conv(

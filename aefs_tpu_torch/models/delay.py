@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel, ms_to_samples
+from aefs_tpu_torch.models.base import EffectModel, lead, ms_to_samples
 from aefs_tpu_torch.ops.ringbuf import feedback_delay_block_rows, rowring_rows
 from aefs_tpu_torch.ops.scan import lag_affine_scan
 
@@ -77,12 +77,12 @@ class StereoDelay(EffectModel):
         def to_samples(ms):
             return torch.clamp(ms_to_samples(self.fs, ms), 0, self.size - 1)
 
-        d_samples = torch.stack([to_samples(d_l_ms), to_samples(d_r_ms)])
-        row = state["row"]
+        d_samples = torch.stack([to_samples(d_l_ms), to_samples(d_r_ms)], -1)
+        row = state["row"]  # one shared row for every slot (LOCKSTEP_STATE)
         wet, lines = feedback_delay_block_rows(
-            state["lines"], row, x, d_samples, fb, self.min_delay)
-        y = torch.clamp(p["mix_dry"] * x + p["mix_wet"] * wet, -1.0, 1.0)
-        new_row = torch.remainder(row + 1, lines.shape[1]).to(torch.int32)
+            state["lines"], row, x, d_samples, lead(fb, 2), self.min_delay)
+        y = torch.clamp(lead(p["mix_dry"], 2) * x + lead(p["mix_wet"], 2) * wet, -1.0, 1.0)
+        new_row = torch.remainder(row + 1, lines.shape[-2]).to(torch.int32)
         return {"lines": lines, "row": new_row}, y
 
     def process_file(self, state, p, x):

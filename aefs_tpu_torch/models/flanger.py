@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.base import EffectModel, lead
 from aefs_tpu_torch.models.lfo import (
     TWO_PI, f64, fs_tensor, lfo_advance, lfo_ramp, spread_channels)
 from aefs_tpu_torch.ops.dsphase import _two_sum
@@ -88,59 +88,62 @@ class Flanger(EffectModel):
             "ph_lo": zero.clone(),
         }
 
-    def _delay(self, p, ph_c, fs):
-        """Delay in samples for (..., C, K) phases, clipped to [D_MIN, H-2]."""
-        delay_ms = p["base_ms"] + p["depth_ms"] * f64(torch.sin, TWO_PI * ph_c)
+    def _delay(self, p, ph_c, fs, k=0):
+        """Delay in samples for (..., C, K) phases, clipped to [D_MIN, H-2];
+        ``k`` trailing unit axes for slot-wise params."""
+        delay_ms = lead(p["base_ms"], k) + lead(p["depth_ms"], k) * f64(torch.sin, TWO_PI * ph_c)
         ms_per_s = torch.full((), 1000.0, device=fs.device)
         return torch.clamp(delay_ms * (fs / ms_per_s), D_MIN, float(self.hist_len - 2))
 
     def _chunk(self, p, fs, dph, hist, hi, lo, xc):
-        """One 256-sample chunk: 12 exact sweeps on the dense tap operator."""
+        """One 256-sample chunk: 12 exact sweeps on the dense tap operator.
+        xc (..., C, K); slot-wise params and state with leading axes."""
         H, K = self.hist_len, _CHUNK
-        fb = p["feedback"]
-        ph_c = spread_channels(lfo_ramp(hi, lo, dph, K), p["spread"], xc.shape[0])
-        d = self._delay(p, ph_c, fs)
+        fb = lead(p["feedback"], 2)
+        ph_c = spread_channels(lfo_ramp(hi, lo, dph, K), p["spread"], xc.shape[-2])
+        d = self._delay(p, ph_c, fs, 2)
         ca = torch.ceil(d).to(torch.int32)
         fr = torch.ceil(d) - d
         base = H + torch.arange(K, dtype=torch.int32, device=xc.device)
-        weights = cubic_onehot_matrix(base[None, :] - ca - 1, fr, H + K)  # (C, K, H+K)
+        weights = cubic_onehot_matrix(base - ca - 1, fr, H + K)  # (..., C, K, H+K)
         # The history half contracts once; the sweeps iterate only the
         # strictly lower in-chunk quarter (taps reach >= 22 back).
-        w_h, w_c = weights[:, :, :H], weights[:, :, H:]
+        w_h, w_c = weights[..., :H], weights[..., H:]
         th = _mv(w_h, hist)
         b = xc + fb * th
         v = torch.zeros_like(xc)
         for _ in range(_SWEEPS):
             v = b + fb * _mv(w_c, v)
         tap = th + _mv(w_c, v)
-        y = (1.0 - p["mix"]) * xc + p["mix"] * tap
-        new_hist = torch.cat([hist, v], 1)[:, -H:]
+        mix = lead(p["mix"], 2)
+        y = (1.0 - mix) * xc + mix * tap
+        new_hist = torch.cat([hist, v], -1)[..., -H:]
         nhi, nlo = lfo_advance(hi, lo, dph, K)
         return new_hist, nhi, nlo, y, v
 
     def process(self, state, p, x):
-        c, n = x.shape
+        n = x.shape[-1]
         fs = fs_tensor(self.fs, x.device)
         dph = p["rate_hz"] / fs
         pad = (-n) % _CHUNK
         xp = F.pad(x, (0, pad)) if pad else x
         hist, hi, lo = state["hist"], state["ph_hi"], state["ph_lo"]
         ys, vs = [], []
-        for k in range(xp.shape[1] // _CHUNK):
+        for k in range(xp.shape[-1] // _CHUNK):
             hist, hi, lo, y, v = self._chunk(p, fs, dph, hist, hi, lo,
-                                             xp[:, k * _CHUNK:(k + 1) * _CHUNK])
+                                             xp[..., k * _CHUNK:(k + 1) * _CHUNK])
             ys.append(y)
             vs.append(v)
-        return self._finish(state, dph, pad, n, torch.cat(ys, 1), torch.cat(vs, 1),
+        return self._finish(state, dph, pad, n, torch.cat(ys, -1), torch.cat(vs, -1),
                             hist, hi, lo)
 
     def _finish(self, state, dph, pad, n, ys, vs, hist_f, hi_f, lo_f):
-        """Unpad (C, total) outputs and, when padded, rebuild the carry from
-        the unpadded delay-line signal and sample count."""
+        """Unpad (..., C, total) outputs and, when padded, rebuild the carry
+        from the unpadded delay-line signal and sample count."""
         if pad:
-            hist_f = torch.cat([state["hist"], vs[:, :n]], 1)[:, -self.hist_len:]
+            hist_f = torch.cat([state["hist"], vs[..., :n]], -1)[..., -self.hist_len:]
             hi_f, lo_f = lfo_advance(state["ph_hi"], state["ph_lo"], dph, n)
-        return {"hist": hist_f, "ph_hi": hi_f, "ph_lo": lo_f}, ys[:, :n]
+        return {"hist": hist_f, "ph_hi": hi_f, "ph_lo": lo_f}, ys[..., :n]
 
     def process_file(self, state, p, x):
         """Whole-file path: per batch of 8 chunks, one one-hot compare builds

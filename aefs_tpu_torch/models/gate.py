@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.base import EffectModel, lead
 from aefs_tpu_torch.ops.scan import affine_hillis, affine_scan_long
 
 
@@ -35,14 +35,15 @@ class NoiseGate(EffectModel):
         return 1.0 - torch.exp(torch.full_like(t, -2.2) / (t * float(self.fs)))
 
     def process(self, state, p, x):
-        thresh = torch.pow(10.0, p["threshold_db"] / 20.0)
-        att = self._coeff(p["attack_ms"])
-        rel = self._coeff(p["release_ms"])
+        thresh = lead(torch.pow(10.0, p["threshold_db"] / 20.0))
+        att = lead(self._coeff(p["attack_ms"]))
+        rel = lead(self._coeff(p["release_ms"]))
 
-        level = torch.amax(torch.abs(x), 0)  # stereo-linked (gate.py:21-25)
+        level = torch.amax(torch.abs(x), -2)  # stereo-linked (gate.py:21-25)
         open_ = level > thresh
         mult = torch.where(open_, 1.0 - att, 1.0 - rel)
         add = torch.where(open_, att, torch.zeros((), device=x.device))
-        scan = affine_scan_long if x.shape[-1] >= 4096 else affine_hillis
-        gain = scan(mult, add, state["gain"])
-        return {"gain": gain[-1]}, x * gain[None, :]
+        # The two-level long scan is single-stream (file mode).
+        scan = affine_scan_long if x.dim() == 2 and x.shape[-1] >= 4096 else affine_hillis
+        gain = scan(mult, add, lead(state["gain"]))
+        return {"gain": gain[..., -1]}, x * gain[..., None, :]

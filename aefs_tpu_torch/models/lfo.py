@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from aefs_tpu_torch.core.params import lead
 from aefs_tpu_torch.ops.dsphase import _two_sum
 
 TWO_PI = 2.0 * math.pi
@@ -40,15 +41,17 @@ def fs_tensor(fs, device):
 
 
 def lfo_ramp(hi, lo, dph, n: int):
-    """Per-sample phase in cycles for the next ``n`` samples: (n,)."""
+    """Per-sample phase in cycles for the next ``n`` samples: (..., n) for
+    (...) slot-wise hi, lo, dph."""
     idx = torch.arange(n, dtype=torch.float32, device=dph.device)
-    return hi + (lo + idx * dph)
+    return lead(hi) + (lead(lo) + idx * lead(dph))
 
 
 def spread_channels(ph, spread, c: int):
-    """(n,) phase -> (c, n): channel k is offset by k * spread cycles."""
+    """(..., n) phase -> (..., c, n): channel k is offset by k * spread
+    cycles."""
     chan = torch.arange(c, dtype=torch.float32, device=ph.device)[:, None]
-    return ph[None, :] + spread * chan
+    return ph[..., None, :] + lead(spread, 2) * chan
 
 
 def lfo_advance(hi, lo, dph, n: int):

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.base import EffectModel, lead
 from aefs_tpu_torch.models.lfo import f64, fs_tensor
 from aefs_tpu_torch.ops.scan import (
     minaffine_hillis,
@@ -64,19 +64,19 @@ class Limiter(EffectModel):
         gain_in = f64(torch.exp2, p["drive_db"] * k)
         ceiling = f64(torch.exp2, p["ceiling_db"] * k)
 
-        xd = gain_in * x
-        ext = torch.cat([state["xh"], xd], 1)  # (C, D + N)
-        peak = torch.amax(torch.abs(ext), 0)  # stereo-linked, (D + N,)
+        xd = lead(gain_in, 2) * x
+        ext = torch.cat([state["xh"], xd], -1)  # (..., C, D + N)
+        peak = torch.amax(torch.abs(ext), -2)  # stereo-linked, (..., D + N)
         # The history window's targets are recomputed with the CURRENT
         # ceiling and drive each block, as in the JAX package.
-        gt = torch.clamp(ceiling / torch.clamp(peak, min=1e-30), max=1.0)
-        u = window_min_trailing(gt[None, :], w, n)[0]
+        gt = torch.clamp(lead(ceiling) / torch.clamp(peak, min=1e-30), max=1.0)
+        u = window_min_trailing(gt[..., None, :], w, n)[..., 0, :]
 
-        a_r = f64(torch.exp, torch.full_like(k, -1000.0)
-                  / (p["release_ms"] * fs_tensor(self.fs, x.device)))
-        v = minaffine_hillis(a_r, (1.0 - a_r) * u, u, state["g"])
+        a_r = lead(f64(torch.exp, torch.full_like(k, -1000.0)
+                       / (p["release_ms"] * fs_tensor(self.fs, x.device))))
+        v = minaffine_hillis(a_r, (1.0 - a_r) * u, u, lead(state["g"]))
 
-        vext = torch.cat([state["vh"], v])  # (D + N,)
-        g = window_sum_trailing(vext[None, :], w, n)[0] * (1.0 / w)
-        y = g[None, :] * ext[:, :n]  # x delayed by D
-        return {"xh": ext[:, -d:], "vh": vext[-(w - 1):], "g": v[-1]}, y
+        vext = torch.cat([state["vh"], v], -1)  # (..., D + N)
+        g = window_sum_trailing(vext[..., None, :], w, n)[..., 0, :] * (1.0 / w)
+        y = g[..., None, :] * ext[..., :n]  # x delayed by D
+        return {"xh": ext[..., -d:], "vh": vext[..., -(w - 1):], "g": v[..., -1]}, y

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.base import EffectModel, lead
 
 
 class ParallelChains(EffectModel):
@@ -92,7 +92,7 @@ class ParallelChains(EffectModel):
                 st, buf = getattr(model, method)(state["branches"][bi][slot], sub, buf)
                 new_states.append(st)
             new_branches.append(tuple(new_states))
-            mix = mix + p[f"gain_{bi}"] * buf
+            mix = mix + lead(p[f"gain_{bi}"], 2) * buf
         return {"branches": tuple(new_branches)}, torch.clamp(mix, -1.0, 1.0)
 
     def process(self, state, p, x):

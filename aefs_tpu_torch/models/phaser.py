@@ -17,7 +17,7 @@ import math
 import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.base import EffectModel, lead
 from aefs_tpu_torch.models.lfo import (
     TWO_PI, f64, fs_tensor, lfo_advance, lfo_ramp, spread_channels)
 from aefs_tpu_torch.ops.scan import affine_hillis
@@ -47,7 +47,7 @@ class Phaser(EffectModel):
         }
 
     def process(self, state, p, x):
-        c, n = x.shape
+        c, n = x.shape[-2:]
         fs = fs_tensor(self.fs, x.device)
         dph = p["rate_hz"] / fs
         ph_c = spread_channels(lfo_ramp(state["ph_hi"], state["ph_lo"], dph, n),
@@ -55,8 +55,8 @@ class Phaser(EffectModel):
 
         # Exponential corner sweep (min <= max even mid-glide), allpass
         # coefficient from tan.
-        lo = torch.minimum(p["min_hz"], p["max_hz"])
-        hi = torch.maximum(p["min_hz"], p["max_hz"])
+        lo = lead(torch.minimum(p["min_hz"], p["max_hz"]), 2)
+        hi = lead(torch.maximum(p["min_hz"], p["max_hz"]), 2)
         sweep = 0.5 * (1.0 + f64(torch.sin, TWO_PI * ph_c))
         f = lo * f64(torch.pow, hi / lo, sweep)
         t = f64(torch.tan, math.pi * f / fs)
@@ -65,17 +65,18 @@ class Phaser(EffectModel):
         y = x
         xprev, yprev = [], []
         for s in range(N_STAGES):
-            xm1 = torch.cat([state["xprev"][:, s:s + 1], y[:, :-1]], 1)
-            out = affine_hillis(-a, a * y + xm1, state["yprev"][:, s:s + 1])
-            xprev.append(y[:, -1])
-            yprev.append(out[:, -1])
+            xm1 = torch.cat([state["xprev"][..., s:s + 1], y[..., :-1]], -1)
+            out = affine_hillis(-a, a * y + xm1, state["yprev"][..., s:s + 1])
+            xprev.append(y[..., -1])
+            yprev.append(out[..., -1])
             y = out
 
-        mixed = (1.0 - p["mix"]) * x + p["mix"] * y
+        mix = lead(p["mix"], 2)
+        mixed = (1.0 - mix) * x + mix * y
         ph_hi, ph_lo = lfo_advance(state["ph_hi"], state["ph_lo"], dph, n)
         return {
             "ph_hi": ph_hi,
             "ph_lo": ph_lo,
-            "xprev": torch.stack(xprev, 1),
-            "yprev": torch.stack(yprev, 1),
+            "xprev": torch.stack(xprev, -1),
+            "yprev": torch.stack(yprev, -1),
         }, mixed

@@ -4,9 +4,9 @@ Per side (reference reverb.py:208-272): pre-delay -> 4 parallel damped
 feedback combs summed -> 2 serial Gardner allpass diffusers -> dry/wet mix
 with hard clip.  L/R decorrelate by +-0.3 ms lag jitter; per-comb feedback
 g = 10^(-3 L / fs / rt60).  Streaming runs both sides' banks as one
-8-comb static-window solve; file mode runs the whole-file comb-sums
-kernel (K2, ops/kernels/comb.py) and rebuilds the final ring state from
-its damped tail.
+8-comb static-window solve (with a leading slot axis in the pool); file
+mode runs the whole-file comb-sums kernel (K2, ops/kernels/comb.py) and
+rebuilds the final ring state from its damped tail.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel, ms_to_samples
+from aefs_tpu_torch.models.base import EffectModel, lead, ms_to_samples
 from aefs_tpu_torch.ops.ringbuf import (
     allpass_block,
     comb_bank_block,
@@ -99,37 +99,38 @@ class Reverb(EffectModel):
         """Pre-delay per side and the per-comb feedback gains from RT60."""
         pre_d = torch.clamp(ms_to_samples(self.fs, p["pre_delay_ms"]),
                             max=self.pre_size - 1)  # reverb.py:224-225
-        pre_out = delay_read(state["pre"], x, pre_d)
+        pre_out = delay_read(state["pre"], x, lead(pre_d))
         g_all = torch.pow(
-            10.0, -3.0 * (self._lags_f / float(self.fs)) / torch.clamp(p["rt60_s"], min=1e-3)
+            10.0, -3.0 * (self._lags_f / float(self.fs)) / lead(torch.clamp(p["rt60_s"], min=1e-3))
         )
         return pre_out, ring_push(state["pre"], x), g_all
 
     def process(self, state, p, x):
         pre_out, new_pre, g_all = self._pre_and_gains(state, p, x)
         b = self.n_combs
-        xb = torch.repeat_interleave(pre_out, b, 0)  # (2B, N) side-major
+        lead_shape = x.shape[:-2]  # the pool's slot axis, if any
+        xb = torch.repeat_interleave(pre_out, b, -2)  # (..., 2B, N) side-major
         static_lags = tuple(self.comb_lags[0] + self.comb_lags[1])
-        hists = state["combs"].reshape(2 * b, -1)
-        lps = state["lps"].reshape(2 * b)
+        hists = state["combs"].reshape(*lead_shape, 2 * b, -1)
+        lps = state["lps"].reshape(*lead_shape, 2 * b)
+        damp = lead(p["damp"], 2)
         if x.shape[-1] <= self.comb_lmin:
             # Mic-sized blocks: every lag read predates the block.
-            y, hists, lps = comb_bank_block_static(hists, lps, xb, static_lags,
-                                                   g_all, p["damp"])
+            y, hists, lps = comb_bank_block_static(hists, lps, xb, static_lags, g_all, damp)
         else:
-            y, hists, lps = comb_bank_block(hists, lps, xb, static_lags, g_all,
-                                            p["damp"], self.comb_lmin)
+            y, hists, lps = comb_bank_block(hists, lps, xb, static_lags, g_all, damp,
+                                            self.comb_lmin)
         return self._diffuse_and_mix(
-            state, p, x, [y[:b], y[b:]], new_pre, [hists[:b], hists[b:]],
-            [lps[:b], lps[b:]])
+            state, p, x, [y[..., :b, :], y[..., b:, :]], new_pre,
+            [hists[..., :b, :], hists[..., b:, :]], [lps[..., :b], lps[..., b:]])
 
     def _diffuse_and_mix(self, state, p, x, comb_y, new_pre, new_combs, new_lps):
         """Per-side allpass diffusers, dry/wet mix with hard clip
-        (reverb.py:243-277), and state assembly.  comb_y: per side a (K, N)
-        tensor summed over its first axis."""
+        (reverb.py:243-277), and state assembly.  comb_y: per side a
+        (..., K, N) tensor summed over its K axis."""
         new_aps, wet_sides = [], []
         for side in range(2):
-            sig = torch.sum(comb_y[side], 0)  # comb sum (reverb.py:234-241)
+            sig = torch.sum(comb_y[side], -2)  # comb sum (reverb.py:234-241)
             side_aps = []
             for stage, lag in enumerate(self.ap_lags[side]):
                 sig, ap_hist = allpass_block(state["aps"][side][stage], sig,
@@ -137,12 +138,12 @@ class Reverb(EffectModel):
                 side_aps.append(ap_hist)
             new_aps.append(tuple(side_aps))
             wet_sides.append(sig)
-        wet = torch.stack(wet_sides)
-        y = torch.clamp(p["mix_dry"] * x + p["mix_wet"] * wet, -1.0, 1.0)
+        wet = torch.stack(wet_sides, -2)
+        y = torch.clamp(lead(p["mix_dry"], 2) * x + lead(p["mix_wet"], 2) * wet, -1.0, 1.0)
         new_state = {
             "pre": new_pre,
-            "combs": torch.stack(new_combs),
-            "lps": torch.stack(new_lps),
+            "combs": torch.stack(new_combs, -3),
+            "lps": torch.stack(new_lps, -2),
             "aps": tuple(new_aps),
         }
         return new_state, y

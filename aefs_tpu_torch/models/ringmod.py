@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.base import EffectModel, lead
 from aefs_tpu_torch.models.lfo import TWO_PI, f64, spread_channels
 
 _MASK32 = 0xFFFFFFFF
@@ -48,13 +48,14 @@ def phase_step_u32(freq_hz, fs):
 
 
 def phase_ramp_u32(acc, num, n: int):
-    """(acc + arange(n) * num) mod 2^32 as int64 (n,)."""
+    """(acc + arange(n) * num) mod 2^32 as int64 (..., n) for slot-wise
+    (...) acc and num."""
     idx = torch.arange(n, dtype=torch.int64, device=num.device)
-    return (acc.to(torch.int64) + idx * num) & _MASK32
+    return (lead(acc.to(torch.int64)) + idx * lead(num)) & _MASK32
 
 
 def phase_ramp_cycles(acc, num, n: int):
-    """The exact modular ramp in cycles: float32 (n,)."""
+    """The exact modular ramp in cycles: float32 (..., n)."""
     return phase_ramp_u32(acc, num, n).to(torch.float32) * _INV_PHASE
 
 
@@ -76,9 +77,10 @@ class RingMod(EffectModel):
         return {"acc": u32_zero(self.device)}
 
     def process(self, state, p, x):
-        c, n = x.shape
+        c, n = x.shape[-2:]
         num = phase_step_u32(p["carrier_hz"], self.fs)
         ph_c = spread_channels(phase_ramp_cycles(state["acc"], num, n), p["spread"], c)
         carrier = f64(torch.sin, TWO_PI * ph_c)
-        y = (1.0 - p["mix"]) * x + p["mix"] * (x * carrier)
+        mix = lead(p["mix"], 2)
+        y = (1.0 - mix) * x + mix * (x * carrier)
         return {"acc": advance_u32(state["acc"], num, n)}, y

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.base import EffectModel, lead
 from aefs_tpu_torch.models.lfo import f64
 from aefs_tpu_torch.ops.fftops import (frame_signal, hann_window, irfft_last,
                                        overlap_add, rfft_last)
@@ -92,22 +92,23 @@ class SpectralFilter(EffectModel):
         }
 
     def process(self, state, p, x):
-        thresh = db_to_lin(p["threshold_db"])
+        thresh = lead(db_to_lin(p["threshold_db"]), 2)
 
-        mono = torch.mean(x, 0)  # mono analysis
+        mono = torch.mean(x, -2)  # mono analysis
         frames, in_tail = frame_signal(state["in_tail"], mono, self.n_fft, self.hop)
-        spec = rfft_last(frames * self.window[None, :])  # (k, bins)
+        spec = rfft_last(frames * self.window[None, :])  # (..., k, bins)
 
         mag = torch.abs(spec)
         if self.noise_profile is not None:
-            over = db_to_lin(p["profile_over_db"])
-            thresh = torch.maximum(thresh, self.noise_profile * over)  # (bins,)
-        cur_mask = torch.where(mag > thresh, 1.0, p["reduction"])
+            over = lead(db_to_lin(p["profile_over_db"]), 2)
+            thresh = torch.maximum(thresh, self.noise_profile * over)  # (..., bins)
+        cur_mask = torch.where(mag > thresh, 1.0, lead(p["reduction"], 2))
         # Temporal smoothing across frames: a first-order scan.
-        mask = affine_scan(self.alpha, (1.0 - self.alpha) * cur_mask, state["mask"], axis=0)
+        mask = affine_scan(self.alpha, (1.0 - self.alpha) * cur_mask, state["mask"], axis=-2)
 
         frames_out = irfft_last(spec * mask)
         y_mono, ola_tail = overlap_add(frames_out, state["ola_tail"], self.hop)
-        new_state = {"in_tail": in_tail, "ola_tail": ola_tail, "mask": mask[-1]}
+        new_state = {"in_tail": in_tail, "ola_tail": ola_tail, "mask": mask[..., -1, :]}
         # The same cleaned mono signal on every output channel.
-        return new_state, y_mono[None, :].repeat(x.shape[0], 1)
+        reps = (1,) * (x.dim() - 2) + (x.shape[-2], 1)
+        return new_state, y_mono.unsqueeze(-2).repeat(*reps)

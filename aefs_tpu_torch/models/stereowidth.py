@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.base import EffectModel, lead
 
 
 class StereoWidth(EffectModel):
@@ -25,10 +25,11 @@ class StereoWidth(EffectModel):
     }
 
     def process(self, state, p, x):
-        if x.shape[0] != 2:  # mono branch context: nothing to widen
+        if x.shape[-2] != 2:  # mono branch context: nothing to widen
             return state, x
-        m = 0.5 * (x[0] + x[1])
-        s = 0.5 * (x[0] - x[1]) * p["width"]
-        bal_l = torch.clamp(1.0 - p["pan"], max=1.0)
-        bal_r = torch.clamp(1.0 + p["pan"], max=1.0)
-        return state, torch.stack([(m + s) * bal_l, (m - s) * bal_r])
+        left, right = x[..., 0, :], x[..., 1, :]
+        m = 0.5 * (left + right)
+        s = 0.5 * (left - right) * lead(p["width"])
+        bal_l = lead(torch.clamp(1.0 - p["pan"], max=1.0))
+        bal_r = lead(torch.clamp(1.0 + p["pan"], max=1.0))
+        return state, torch.stack([(m + s) * bal_l, (m - s) * bal_r], -2)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.base import EffectModel, lead
 from aefs_tpu_torch.models.lfo import (
     TWO_PI, f64, fs_tensor, lfo_advance, lfo_ramp, spread_channels)
 
@@ -31,10 +31,10 @@ class Tremolo(EffectModel):
         return {"ph_hi": zero, "ph_lo": zero.clone()}
 
     def process(self, state, p, x):
-        c, n = x.shape
+        c, n = x.shape[-2:]
         dph = p["rate_hz"] / fs_tensor(self.fs, x.device)
         ph_c = spread_channels(lfo_ramp(state["ph_hi"], state["ph_lo"], dph, n),
                                p["spread"], c)
-        gain = 1.0 - 0.5 * p["depth"] * (1.0 + f64(torch.sin, TWO_PI * ph_c))
+        gain = 1.0 - 0.5 * lead(p["depth"], 2) * (1.0 + f64(torch.sin, TWO_PI * ph_c))
         hi, lo = lfo_advance(state["ph_hi"], state["ph_lo"], dph, n)
         return {"ph_hi": hi, "ph_lo": lo}, x * gain

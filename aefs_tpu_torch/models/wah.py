@@ -22,7 +22,7 @@ import math
 import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.base import EffectModel, lead
 from aefs_tpu_torch.models.lfo import TWO_PI, f64, fs_tensor, lfo_advance, lfo_ramp
 from aefs_tpu_torch.ops.scan import affine_hillis, mat2_affine_hillis
 
@@ -52,34 +52,37 @@ class Wah(EffectModel):
         }
 
     def process(self, state, p, x):
-        c, n = x.shape
+        n = x.shape[-1]
         fs = fs_tensor(self.fs, x.device)
         dph = p["rate_hz"] / fs
         ph = lfo_ramp(state["ph_hi"], state["ph_lo"], dph, n)
         lfo_sweep = 0.5 * (1.0 + f64(torch.sin, TWO_PI * ph))
 
-        mono = torch.mean(torch.abs(x), 0)
+        mono = torch.mean(torch.abs(x), -2)
         # True divisions (a Python scalar over a tensor is a reciprocal
         # multiply in torch).
-        a_e = f64(torch.exp, torch.full((), -1000.0, device=x.device) / (p["env_ms"] * fs))
-        env = affine_hillis(a_e, (1.0 - a_e) * mono, state["env"])
-        env_sweep = torch.clamp(p["sens"] * env, 0.0, 1.0)
+        a_e = lead(f64(torch.exp, torch.full((), -1000.0, device=x.device)
+                       / (p["env_ms"] * fs)))
+        env = affine_hillis(a_e, (1.0 - a_e) * mono, lead(state["env"]))
+        env_sweep = torch.clamp(lead(p["sens"]) * env, 0.0, 1.0)
 
-        sweep = (1.0 - p["mode"]) * lfo_sweep + p["mode"] * env_sweep
-        lo_hz = torch.minimum(p["min_hz"], p["max_hz"])
-        hi_hz = torch.maximum(p["min_hz"], p["max_hz"])
+        sweep = lead(1.0 - p["mode"]) * lfo_sweep + lead(p["mode"]) * env_sweep
+        lo_hz = lead(torch.minimum(p["min_hz"], p["max_hz"]))
+        hi_hz = lead(torch.maximum(p["min_hz"], p["max_hz"]))
         fc = lo_hz * f64(torch.pow, hi_hz / lo_hz, sweep)
         q1 = torch.ones((), device=x.device) / p["res"]
         f = 2.0 * f64(torch.sin, math.pi * fc / fs)
         # Stability clamp (f^2 + 2f/Q < 4), inactive at fs >= 24 kHz.
-        f = torch.minimum(f, 0.95 * (torch.sqrt(q1 * q1 + 4.0) - q1))
+        f = torch.minimum(f, lead(0.95 * (torch.sqrt(q1 * q1 + 4.0) - q1)))
+        fr = f[..., None, :]  # (..., 1, N) against the channels
 
         low, band = mat2_affine_hillis(
-            torch.ones((1, n), device=x.device), f[None, :], -f[None, :],
-            (1.0 - f * f - f * q1)[None, :], torch.zeros_like(x), f[None, :] * x,
-            state["low"][:, None], state["band"][:, None])
+            torch.ones((1, n), device=x.device), fr, -fr,
+            (1.0 - f * f - f * lead(q1))[..., None, :], torch.zeros_like(x), fr * x,
+            state["low"][..., None], state["band"][..., None])
 
-        y = (1.0 - p["mix"]) * x + p["mix"] * (q1 * band)
+        mix = lead(p["mix"], 2)
+        y = (1.0 - mix) * x + mix * (lead(q1, 2) * band)
         hi, lo = lfo_advance(state["ph_hi"], state["ph_lo"], dph, n)
-        return {"low": low[:, -1], "band": band[:, -1], "env": env[-1],
+        return {"low": low[..., -1], "band": band[..., -1], "env": env[..., -1],
                 "ph_hi": hi, "ph_lo": lo}, y

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel
+from aefs_tpu_torch.models.base import EffectModel, lead
 
 
 class Waveshaper(EffectModel):
@@ -24,14 +24,15 @@ class Waveshaper(EffectModel):
     }
 
     def process(self, state, p, x):
-        u = p["drive"] * x
+        u = lead(p["drive"], 2) * x
         hard = torch.clamp(u, -1.0, 1.0)
         soft = 1.5 * hard - 0.5 * hard * hard * hard  # maps +-1 -> +-1
         tanh = torch.tanh(u)
 
         # torch.round, like jnp.round, rounds half to even.
-        t = torch.round(p["shape"]).to(torch.int32)
+        t = lead(torch.round(p["shape"]).to(torch.int32), 2)
         wet = torch.where(t == 0, hard, torch.where(t == 1, tanh, soft))
 
-        y = p["out_gain"] * (p["mix"] * wet + (1.0 - p["mix"]) * x)
+        mix = lead(p["mix"], 2)
+        y = lead(p["out_gain"], 2) * (mix * wet + (1.0 - mix) * x)
         return state, torch.clamp(y, -1.0, 1.0)

@@ -42,11 +42,12 @@ def frame_signal(tail, x, n_fft: int, hop: int):
 
 
 def overlap_add(frames, tail, hop: int):
-    """50%-overlap-add synthesis.  frames: (k, 2*hop); tail: (hop,) the
-    previous frame's second half.  Returns (y (k*hop,), new_tail)."""
-    k = frames.shape[0]
-    halves = torch.cat([tail[None, :], frames[:-1, hop:]], 0)
-    return (frames[:, :hop] + halves).reshape(k * hop), frames[-1, hop:]
+    """50%-overlap-add synthesis.  frames: (..., k, 2*hop); tail: (..., hop)
+    the previous frame's second half.  Returns (y (..., k*hop), new_tail)."""
+    k = frames.shape[-2]
+    halves = torch.cat([tail[..., None, :], frames[..., :-1, hop:]], -2)
+    return ((frames[..., :hop] + halves).reshape(*frames.shape[:-2], k * hop),
+            frames[..., -1, hop:])
 
 
 def partitioned_fft_conv(spec_hist, in_tail, x, ir_spectra, hop: int):

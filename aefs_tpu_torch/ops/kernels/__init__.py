@@ -83,9 +83,9 @@ def library():
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
             ll, f = ctypes.c_longlong, ctypes.c_float
-            lib.aefs_octaver_step.argtypes = [p, ll, i, i, p, i] + [p] * 10
+            lib.aefs_octaver_step.argtypes = [p, ll, ll, i, i, i, p, i] + [p] * 10
             lib.aefs_octaver_step.restype = i
-            lib.aefs_chorus_step.argtypes = [p, ll, i, i, p, i, f] + [p] * 9
+            lib.aefs_chorus_step.argtypes = [p, ll, ll, i, i, i, p, i, f] + [p] * 9
             lib.aefs_chorus_step.restype = i
             lib.aefs_comb_sums.argtypes = [
                 p, i, i, p, p, p, i, p, p, i, i, i, i, p, p, p, p]

@@ -102,7 +102,8 @@ def feedback_delay_block_rows(ring, row, x, d_samples, feedback, min_delay: int,
         y[n] = w[n - d],   w[n] = x[n] + feedback * y[n]
 
     ring: (..., R, N) written values w; row: shared int32 slot;
-    x: (..., N); d_samples: int (...) in [min_delay, (R-1)*N].
+    x: (..., N); d_samples: int (...) in [min_delay, (R-1)*N]; feedback
+    0-dim or broadcastable to x.
     n_iters: fixed-point pass count, default ceil(N / min_delay).
     Returns (y, new_ring) — the caller advances the row pointer."""
     n = x.shape[-1]
@@ -131,29 +132,31 @@ def comb_bank_block(hists, lps, x, lags, g, h, min_lag: int):
     longer than the shortest lag (fixed point: corrections propagate one
     lag per pass).
 
-    hists: (B, Lmax) padded chronological windows; lps: (B,) damping
-    states; x: (N,) shared or (B, N) per-comb input; lags: static ints
-    (B,); g: (B,); h: 0-dim.  Returns (y, new_hists, new_lps)."""
-    b, lmax = hists.shape
+    hists: (..., B, Lmax) padded chronological windows; lps: (..., B)
+    damping states; x: (..., N) shared or (..., B, N) per-comb input;
+    lags: static ints (B,); g: (..., B); h: 0-dim or (..., 1, 1).  Returns
+    (y, new_hists, new_lps)."""
+    b, lmax = hists.shape[-2:]
     n = x.shape[-1]
+    shape = hists.shape[:-1] + (n,)
     lag_t = torch.tensor(list(lags), device=x.device)
-    ext = torch.cat([hists, torch.zeros((b, n), device=x.device)], -1)
+    ext = torch.cat([hists, torch.zeros(shape, device=x.device)], -1)
     base_hist = _take_last(ext, (lmax - lag_t)[:, None]
                            + torch.arange(n, device=x.device))  # valid where n < lag
     in_hist = torch.arange(n, device=x.device)[None, :] < lag_t[:, None]
-    xb = torch.broadcast_to(x, (b, n))
+    xb = torch.broadcast_to(x, shape)
     x_shift = _shift_dyn(xb, lag_t)
-    lps_col = lps[:, None]
-    g_col = g[:, None]
+    lps_col = lps[..., None]
+    g_col = g[..., None]
     k = max(1, -(-n // max(1, min_lag)))
-    y = torch.zeros((b, n), device=x.device)
+    y = torch.zeros(shape, device=x.device)
     for _ in range(k):
         damped = const_affine_hillis(h, (1.0 - h) * y, lps_col)
         y = torch.where(in_hist, base_hist, x_shift + g_col * _shift_dyn(damped, lag_t))
     damped = const_affine_hillis(h, (1.0 - h) * y, lps_col)
     w = xb + g_col * damped
-    new_hists = torch.cat([hists, w], -1)[:, -lmax:]
-    return y, new_hists, damped[:, -1]
+    new_hists = torch.cat([hists, w], -1)[..., -lmax:]
+    return y, new_hists, damped[..., -1]
 
 
 def comb_bank_block_static(hists, lps, x, lags, g, h):
@@ -162,18 +165,20 @@ def comb_bank_block_static(hists, lps, x, lags, g, h):
     so the outputs are static per-comb history windows, and the damping
     recurrence is a constant-coefficient Hillis prefix.
 
-    hists: (B, Lmax); lps: (B,); x: (N,) shared or (B, N); lags: static
-    ints; g: (B,); h: 0-dim.  Returns (y, new_hists, new_lps)."""
-    b, lmax = hists.shape
+    hists: (..., B, Lmax); lps: (..., B); x: (..., N) shared or
+    (..., B, N); lags: static ints; g: (..., B); h: 0-dim or (..., 1, 1).
+    Returns (y, new_hists, new_lps)."""
+    b, lmax = hists.shape[-2:]
     n = x.shape[-1]
     lags = tuple(int(l) for l in lags)
     assert n <= min(lags), (n, lags)
-    xb = torch.broadcast_to(x, (b, n))
-    y = torch.stack([hists[c, lmax - lag : lmax - lag + n] for c, lag in enumerate(lags)])
-    damped = const_affine_hillis(h, (1.0 - h) * y, lps[:, None])
-    w = xb + g[:, None] * damped
-    new_hists = torch.cat([hists, w], -1)[:, -lmax:]
-    return y, new_hists, damped[:, -1]
+    xb = torch.broadcast_to(x, hists.shape[:-1] + (n,))
+    y = torch.stack([hists[..., c, lmax - lag : lmax - lag + n] for c, lag in enumerate(lags)],
+                    -2)
+    damped = const_affine_hillis(h, (1.0 - h) * y, lps[..., None])
+    w = xb + g[..., None] * damped
+    new_hists = torch.cat([hists, w], -1)[..., -lmax:]
+    return y, new_hists, damped[..., -1]
 
 
 def comb_chunk_size(lags, chunk=None) -> int:
@@ -251,14 +256,16 @@ def allpass_block(hist, x, a, lag: int):
 
     i.e. y[n] = base[n] + a*y[n - lag] with
     base[n] = (hist[n] if n < lag else x[n - lag]) - a*x[n].
-    hist: (lag,) chronological written values.  Returns (y, new_hist)."""
+    hist: (..., lag) chronological written values; x: (..., N); the
+    residue-class scan of long blocks is single-stream.  Returns (y,
+    new_hist)."""
     n = x.shape[-1]
     if n <= lag:
-        y = hist[:n] - a * x
+        y = hist[..., :n] - a * x
     else:
-        head = hist - a * x[:lag]
-        tail = x[: n - lag] - a * x[lag:]
-        base = torch.cat([head, tail])
+        head = hist - a * x[..., :lag]
+        tail = x[..., : n - lag] - a * x[..., lag:]
+        base = torch.cat([head, tail], -1)
         k = (n - 1) // lag  # highest feedback order reaching into the block
         if k <= 8:
             # Streaming blocks: y = sum_j a^j base[n - j*lag] as Horner steps.
@@ -311,20 +318,20 @@ def cubic_onehot_matrix(t0, fr, length: int):
 
 
 def fractional_read_cubic(hist, x, ago):
-    """Cubic-interpolated tap at fractional distances ``ago`` (N,) into the
-    past of the stream hist (S,) ++ x (N,): the four samples
+    """Cubic-interpolated tap at fractional distances ``ago`` (..., N) into
+    the past of the stream hist (..., S) ++ x (..., N): the four samples
     ca+1 .. ca-2 back (ca = ceil(ago)), interpolated at frac = ca - ago,
     with the reference's ring-wrap semantics on the boundary lanes
-    (reference octaver.py:37-62)."""
+    (reference octaver.py:37-62).  Leading axes are independent streams."""
     s = hist.shape[-1]
     n = x.shape[-1]
-    ext = torch.cat([hist, x])
+    ext = torch.cat([hist, x], -1)
     ca_f = torch.ceil(ago)
     frac = ca_f - ago
     ca = ca_f.to(torch.int32)
     base = s + torch.arange(n, device=x.device, dtype=torch.int32)
     start = torch.clamp(base - (ca + 1), 0, s + n - 4).long()
-    taps = [ext[start + k] for k in range(4)]
+    taps = [torch.gather(ext, -1, start + k) for k in range(4)]
     bulk = cubic_hermite(frac, *taps)
     return _wrap_patch(ext, s, n, ca, frac, bulk)
 
@@ -334,7 +341,7 @@ def _wrap_patch(ext, s, n, ca, frac, bulk):
     semantics (octaver.py:45-48): when ca is within 1 of the ring boundary,
     the wrapped distances land in {0, 1, 2} or {s-3, s-2, s-1}, whose
     reads are static shifts of the stream."""
-    shifts = {j: ext[s - j : s - j + n] for j in (0, 1, 2, s - 3, s - 2, s - 1)}
+    shifts = {j: ext[..., s - j : s - j + n] for j in (0, 1, 2, s - 3, s - 2, s - 1)}
 
     def wrap_tap(offset):
         back = torch.remainder(ca + offset, s)

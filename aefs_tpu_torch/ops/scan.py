@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from aefs_tpu_torch import check_precision
+from aefs_tpu_torch.core.params import lead
 
 
 def _matmul(a, b):
@@ -361,7 +362,8 @@ def mat2_affine_hillis(mp, mq, mr, ms, bu, bv, init1, init2):
 
 def linrec2(v, a1, a2, y1, y2):
     """Solve y[n] = v[n] - a1*y[n-1] - a2*y[n-2] with y[-1]=y1, y[-2]=y2
-    over the last axis.  v: (..., N); coefficients 0-dim; y1, y2: (...)."""
+    over the last axis.  v: (..., N); coefficients 0-dim or broadcastable
+    to v; y1, y2: (...)."""
     shp = v.shape
     a1 = a1.to(v.dtype)
     a2 = a2.to(v.dtype)
@@ -421,9 +423,11 @@ def linrec2_file_fir(x, b0, b1, b2, a1, a2, x1, x2, y1, y2, chunk: int = 256):
 def biquad_block(x, b0, b1, b2, a1, a2, state):
     """Direct-Form-I biquad over a block, per channel.
 
-    x: (C, N) float32; state: (C, 4) = [x1, x2, y1, y2] per channel;
-    coefficients 0-dim float32 (constant within the block).  Returns (y,
-    new_state), float32.
+    x: (..., C, N) float32; state: (..., C, 4) = [x1, x2, y1, y2] per
+    channel; coefficients float32 (...) (constant within the block), one
+    per leading index (the pool's slots) or 0-dim.  Returns (y, new_state),
+    float32.  Blocks of 1,024 samples or more take the chunked Toeplitz
+    solve, which is single-stream (0-dim coefficients).
 
     Solved in float64 from the float32 coefficients, input and state, and
     rounded once.  The JAX package solves in float32, and both its forms
@@ -437,18 +441,20 @@ def biquad_block(x, b0, b1, b2, a1, a2, state):
     x, state = x.double(), state.double()
     b0, b1, b2, a1, a2 = (c.double() for c in (b0, b1, b2, a1, a2))
     n = x.shape[-1]
-    x1, x2, y1, y2 = state[:, 0], state[:, 1], state[:, 2], state[:, 3]
+    x1, x2, y1, y2 = state[..., 0], state[..., 1], state[..., 2], state[..., 3]
     if n >= 1024:
         # Long signals: chunked Toeplitz solve.  Streaming blocks keep the
         # scan (the matmul form loses ~12 dB under per-block coefficient
         # glides at high Q — the reference's biquad_block note).
         y = linrec2_file_fir(x, b0, b1, b2, a1, a2, x1, x2, y1, y2)
-        xm1_last = x[:, -2]
+        xm1_last = x[..., -2]
     else:
-        xm1 = torch.cat([x1[:, None], x[:, :-1]], 1)[:, :n]  # x[n-1]
-        xm2 = torch.cat([x2[:, None], x1[:, None], x[:, :-2]], 1)[:, :n]  # x[n-2]
+        b0, b1, b2, a1, a2 = (lead(c, 2) for c in (b0, b1, b2, a1, a2))
+        xm1 = torch.cat([x1[..., None], x[..., :-1]], -1)[..., :n]  # x[n-1]
+        xm2 = torch.cat([x2[..., None], x1[..., None], x[..., :-2]], -1)[..., :n]  # x[n-2]
         v = b0 * x + b1 * xm1 + b2 * xm2
         y = linrec2(v, a1, a2, y1, y2)
-        xm1_last = xm1[:, -1]
-    ym2 = y[:, -2] if n >= 2 else y1
-    return y.to(out_dtype), torch.stack([x[:, -1], xm1_last, y[:, -1], ym2], 1).to(out_dtype)
+        xm1_last = xm1[..., -1]
+    ym2 = y[..., -2] if n >= 2 else y1
+    return (y.to(out_dtype),
+            torch.stack([x[..., -1], xm1_last, y[..., -1], ym2], -1).to(out_dtype))

@@ -43,7 +43,22 @@ Drives the port's main path (aefs_tpu_torch) end to end on the card:
    and ``--resume``d, byte-equal to an uninterrupted run (K1 once per 4096
    superblock); ``process_wav_file`` of the demo with a fake websocket.
 
-Every path of phases 6-9 runs from zeroed kernel launch counters, read
+10. the multi-session pool (``aefs_tpu_torch.server.pool``): K1's and K3's
+   slot grids against their plain steps and against S = 1 launches, bit for
+   bit per slot, at S = 1, 16 and 64 over 40 blocks, timed beside their
+   bound; a flagship ``SessionPool`` of 16 slots over 375 blocks (every
+   slot its own stream and params, an ``update_param``, a release and a new
+   claim at block 150) against each session's solo chain on the card, a
+   dedicated pool (bit for bit) and the CPU pool, with K1 once per pool
+   step and the kernels per pool step against the solo step's; pool step
+   p50/p99, synchronous and pipelined, at S = 1, 16 and 64 for the
+   flagship, "Lush Chorus" and "Rain Delay", the largest S within the
+   5.33 ms deadline (streams per card) and the device busy share of a
+   step; a ``MultiPool`` of two buckets (migration, a join, an
+   ``update_param`` through the id map), bit for bit against dedicated
+   pools; ``PoolServer.handler`` driven by a fake websocket.
+
+Every path of phases 6-10 runs from zeroed kernel launch counters, read
 just after it; each fails if a kernel it runs was not launched.  The last
 slice's paths run none of the four kernels (their FFTs are cuFFT, as the
 JAX package's are ``jnp.fft`` outside Pallas); their counts are recorded.
@@ -56,7 +71,8 @@ durations ``torch.profiler`` records, per call) and its bound: the larger
 of the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s, from this run's
 shapes.  No single PyTorch call computes any of the four functions, so
-``library_ms`` is null.
+``library_ms`` is null.  K1's and K3's records carry ``slot_grid``: the same
+figures for one launch over S = 1, 16 and 64 slots.
 
 Any failure raises (non-zero exit).  The last two lines of standard output are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.  Imports no
@@ -80,6 +96,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from aefs_tpu_torch.core.chain import build_chain
 from aefs_tpu_torch.core.config import DEFAULT_PRESETS
 from aefs_tpu_torch.engine.engine import AudioEngine, process_offline, render_batch
 from aefs_tpu_torch.engine.flagship import FLAGSHIP
@@ -94,6 +111,7 @@ from aefs_tpu_torch.ops.kernels.comb import (
 from aefs_tpu_torch.ops.kernels.resample import (
     chorus_step, chorus_step_plain, octaver_step, octaver_step_plain)
 from aefs_tpu_torch.ops.ringbuf import comb_bank_file_chunks, comb_chunk_size
+from aefs_tpu_torch.server.pool import MultiPool, PoolServer, SessionPool
 from aefs_tpu_torch.utils.analysis import PlotAnalyzer
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -130,7 +148,13 @@ LAST_SLICE_PRESETS = ("Clean Noise Removal", "Crunch", "Concert Hall (Convolutio
 # Every wrapper's launch counter, by the name the kernels' record uses.
 COUNTERS = {"octaver_step": octaver_step, "comb_sums": comb_sums,
             "chorus_step": chorus_step, "comb_chunks": comb_chunks}
-LAUNCHES = {k: 0 for k in COUNTERS}  # summed over the paths of phases 6-8
+LAUNCHES = {k: 0 for k in COUNTERS}  # summed over the paths of phases 6-10
+POOL_SLOTS = 16  # the pool server's default width
+SLOT_GRID_S = (1, 16, 64)
+SLOT_GRID_BLOCKS = 40
+POOL_PRESETS = ("flagship", "Lush Chorus", "Rain Delay")
+TIMED_STEPS = 100
+SWEEP_S = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
 def phase(name, **fields):
@@ -818,6 +842,446 @@ def wav_upload(demo):
           analysis_vs_cpu=worst)
 
 
+# -- phase 10: the multi-session pool ----------------------------------------
+
+def slot_run(step, dev, kind, slots, blocks, seed):
+    """``blocks`` blocks of 2 x 256 noise through a step with a leading slot
+    axis, every slot with its own params: the octaver's semitones spread
+    over [-24, 24] with slot 0 gliding -12 -> -5 halfway (a re-anchor
+    mid-run), the last slot from n_abs = 2^28 - 300, mixes 0.1-0.9; the
+    chorus's rates spread over [0.1, 9.5] with slot 0 going 0.6 -> 4.0
+    halfway, depths, bases, mixes and spreads spread, the last slot's delay
+    law cut by the clamp (base 1 ms, depth 10 ms)."""
+    rng = np.random.default_rng(seed)
+    lin = torch.linspace(0.0, 1.0, slots, device=dev)
+    if kind == "octaver":
+        one = Octaver(FS, BLOCK, device=dev).init_state()
+        st = {k: v.expand((slots,) + v.shape).clone() for k, v in one.items()}
+        st["hist"] = noise(rng, st["hist"].shape, dev)
+        st["n_abs"][-1] = (1 << 28) - 300
+        fixed = {"mix": 0.1 + 0.8 * lin}
+    else:
+        st = {"hist": noise(rng, (slots, 2, CHORUS_HIST), dev), "ph_hi": 0.9 * lin,
+              "ph_lo": torch.zeros(slots, device=dev)}
+        fixed = {"depth_ms": 2.0 + 8.0 * lin, "base_ms": 14.0 + 20.0 * lin,
+                 "mix": 0.2 + 0.8 * lin, "spread": 0.5 * lin}
+        fixed["depth_ms"][-1], fixed["base_ms"][-1] = 10.0, 1.0
+    ys = []
+    for b in range(blocks):
+        x = noise(rng, (slots, 2, BLOCK), dev)
+        if kind == "octaver":
+            live = -24.0 + 48.0 * lin
+            live[0] = -12.0 if b < blocks // 2 else -5.0
+            p = {**fixed, "semitones": live}
+        else:
+            live = 0.1 + 9.4 * lin
+            live[0] = 0.6 if b < blocks // 2 else 4.0
+            p = {**fixed, "rate_hz": live}
+        st, y = step(st, p, x)
+        ys.append(y)
+    torch.cuda.synchronize()
+    return ys, st, p, x
+
+
+def per_slot(step):
+    """``step`` slot by slot without slot dims (S = 1 launches), stacked."""
+    def run(st, p, x):
+        outs = [step({k: v[s] for k, v in st.items()}, {k: v[s] for k, v in p.items()}, x[s])
+                for s in range(x.shape[0])]
+        return ({k: torch.stack([o[0][k] for o in outs]) for k in outs[0][0]},
+                torch.stack([o[1] for o in outs]))
+    return run
+
+
+def check_slot_grids(dev):
+    """K1 and K3 with S slots in one launch at S = 1, 16, 64 over 40 blocks:
+    every slot bit-equal to the plain step and to an S = 1 launch on that
+    slot's inputs; wrapper, device and plain times beside the bound."""
+    chorus = lambda st, p, x: chorus_step(st, p, x, FS)  # noqa: E731
+    chorus_plain = lambda st, p, x: chorus_step_plain(st, p, x, FS)  # noqa: E731
+    kinds = {"octaver": (octaver_step, octaver_step_plain, "octaver_step_kernel"),
+             "chorus": (chorus, chorus_plain, "chorus_step_kernel")}
+    res = {"octaver": {}, "chorus": {}}
+    for kind, (kern, plain, kname) in kinds.items():
+        for slots in SLOT_GRID_S:
+            got = slot_run(kern, dev, kind, slots, SLOT_GRID_BLOCKS, 50 + slots)
+            ref = slot_run(plain, dev, kind, slots, SLOT_GRID_BLOCKS, 50 + slots)
+            one = slot_run(per_slot(kern), dev, kind, slots, SLOT_GRID_BLOCKS, 50 + slots)
+            same_plain, err = compare_runs(got[:2], ref[:2])
+            same_one, err_one = compare_runs(got[:2], one[:2])
+            if not (same_plain and same_one):
+                raise AssertionError(f"{kind} slot grid S={slots}: plain bitwise {same_plain} "
+                                     f"({err}), S=1 launches bitwise {same_one} ({err_one})")
+            st, p, x = got[1], got[2], got[3]
+            ms = cuda_ms(lambda: kern(st, p, x), 500)
+            dev_ms = device_ms(lambda: kern(st, p, x), (kname,), 100)
+            plain_ms = cuda_ms(lambda: plain(st, p, x), 20)
+            if kind == "octaver":
+                size = st["hist"].shape[-1]
+                bnd = bound(slots * (4 * (2 * BLOCK + size + 8) + 4 * (2 * BLOCK + size + 6)),
+                            slots * (OCTAVER_STEP_OPS * BLOCK + OCTAVER_PROLOGUE_OPS))
+            else:
+                bnd = bound(slots * (4 * (2 * BLOCK + 2 * CHORUS_HIST + 7)
+                                     + 4 * (2 * BLOCK + 2 * CHORUS_HIST + 2)),
+                            slots * CHORUS_STEP_OPS * 2 * BLOCK)
+            res[kind][slots] = {"max_abs_err": max(err, err_one), "bitwise": True, "ms": ms,
+                                "device_ms": dev_ms, "plain_ms": plain_ms,
+                                "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"]}
+            phase("pool_slot_grid", kernel=f"{kind}_step", slots=slots, blocks=SLOT_GRID_BLOCKS,
+                  bitwise_vs_plain=True, bitwise_vs_s1_launches=True, **res[kind][slots],
+                  bytes=bnd["bytes"], flops=bnd["flops"])
+    return res
+
+
+FLAGSHIP_SLOT_PARAMS = ("g", "threshold_db", lambda s: -60.0 + 2.0 * s), \
+    ("o", "semitones", lambda s: (-12.0, -7.0, 12.0)[s % 3]), \
+    ("f", "cutoff_hz", lambda s: 1000.0 + 500.0 * s), \
+    ("d", "feedback", lambda s: 0.1 + 0.04 * s)
+CHANGE_AT = 150
+CPU_POOL_SLOTS, CPU_POOL_BLOCKS = 3, 40
+UPDATED_SLOT, UPDATE = 3, ("o", "semitones", 7.0)
+RELEASED_SLOT = 5
+
+
+def pool_streams(mono, slots, blocks):
+    """Each slot's stream: the demo's mono mix from its own offset (1 s
+    apart); one more for the session that claims a slot at CHANGE_AT."""
+    x = mono[:, 0]
+    return [np.ascontiguousarray(x[s * FS:s * FS + blocks * BLOCK]).reshape(blocks, BLOCK)
+            for s in range(slots + 1)]
+
+
+def drive_pool(pool, streams, blocks):
+    """The flagship pool's run: per-slot params, then at CHANGE_AT an
+    update_param on one slot and a release plus a new claim of another (the
+    new session streams the extra stream).  Returns per block {slot: (N, 2)}."""
+    for s in range(pool.n_slots):
+        if pool.claim() != s:
+            raise AssertionError("a fresh pool hands out slots in order")
+        for eid, name, value in FLAGSHIP_SLOT_PARAMS:
+            if pool.update_param(s, eid, name, value(s)) is not None:
+                raise AssertionError(f"update_param {eid}.{name} refused")
+    outs = []
+    for b in range(blocks):
+        if b == CHANGE_AT:
+            pool.update_param(UPDATED_SLOT, *UPDATE)
+            pool.release(RELEASED_SLOT)
+            if pool.claim() != RELEASED_SLOT:
+                raise AssertionError("the released slot was not handed out again")
+        blocks_b = {s: streams[s][b] for s in range(pool.n_slots)}
+        if b >= CHANGE_AT:
+            blocks_b[RELEASED_SLOT] = streams[pool.n_slots][b - CHANGE_AT]
+        outs.append(pool.step_blocks(blocks_b))
+    return outs
+
+
+def solo_session(dev, stream, params, blocks, update=None):
+    """One session's solo chain (``Chain.process_block``) on ``dev``."""
+    chain, state, tmap = build_chain(FLAGSHIP, FS, BLOCK, device=dev)
+    for eid, name, value in params:
+        tmap.setdefault(eid, {})[name] = value
+    targets = chain.targets(tmap)
+    ys = []
+    for b in range(blocks):
+        if update is not None and b == update[0]:
+            tmap[update[1]][update[2]] = update[3]
+            targets = chain.targets(tmap)
+        state, y = chain.process_block(state, targets,
+                                       torch.from_numpy(stream[b][None]).to(chain.device))
+        ys.append(y.cpu().numpy().T)
+    return np.concatenate(ys)
+
+
+def kernels_per_step(fn, steps=10):
+    """(device kernels, copies, busy ms) per call of ``fn`` under
+    torch.profiler, counted the way scripts/profile_port.py counts a block:
+    memcpy and memset events are copies, not kernels.  (A strided copy runs
+    as an elementwise kernel where a contiguous one is a memcpy, so the two
+    counts trade places when a shift's pad input goes from (N,) to (S, N).)"""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [ev for ev in prof.profiler.kineto_results.events() if ev.device_type() == cuda]
+    n = sum(1 for ev in evs if not ev.name().startswith(("Memcpy", "Memset")))
+    busy = union_ms([(ev.start_ns(), ev.start_ns() + ev.duration_ns()) for ev in evs])
+    return n / steps, (len(evs) - n) / steps, busy / steps
+
+
+def union_ms(intervals):
+    """Length of the union of (start_ns, end_ns) intervals, in ms."""
+    total, cur_s, cur_e = 0, None, None
+    for s0, e0 in sorted(intervals):
+        if cur_e is None or s0 > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e6
+
+
+def pool_flagship(mono):
+    """The flagship SessionPool at 16 slots over 375 blocks, held against
+    each session's solo chain on the card (<= -120 dBFS), a dedicated pool
+    on the card (bit for bit) and the CPU pool (3 slots, 40 blocks,
+    <= -90 dBFS); K1 once per pool step; kernels per pool step."""
+    streams = pool_streams(mono, POOL_SLOTS, STREAM_BLOCKS)
+    pool = SessionPool(FLAGSHIP, n_slots=POOL_SLOTS, device="cuda")
+    t0 = time.perf_counter()
+    outs, counts = count_launches(lambda: drive_pool(pool, streams, STREAM_BLOCKS),
+                                  need=("octaver_step",), per_block=STREAM_BLOCKS)
+    wall = time.perf_counter() - t0
+    dedicated = SessionPool(FLAGSHIP, n_slots=POOL_SLOTS, device="cuda")
+    outs_d, counts_d = count_launches(lambda: drive_pool(dedicated, streams, STREAM_BLOCKS),
+                                      need=("octaver_step",), per_block=STREAM_BLOCKS)
+    for b in range(STREAM_BLOCKS):
+        for s in range(POOL_SLOTS):
+            if not np.array_equal(outs[b][s], outs_d[b][s]):
+                raise AssertionError(f"pool block {b} slot {s}: differs from a dedicated pool")
+    worst_solo, worst_cpu = -np.inf, -np.inf
+    for s in range(POOL_SLOTS):
+        params = [(eid, name, value(s)) for eid, name, value in FLAGSHIP_SLOT_PARAMS]
+        got = np.concatenate([o[s] for o in outs])
+        upd = (CHANGE_AT, *UPDATE) if s == UPDATED_SLOT else None
+        span = CHANGE_AT if s == RELEASED_SLOT else STREAM_BLOCKS
+        want = solo_session("cuda", streams[s], params, span, upd)
+        worst_solo = max(worst_solo, err_dbfs(got[:span * BLOCK], want))
+    new = solo_session("cuda", streams[POOL_SLOTS], [], STREAM_BLOCKS - CHANGE_AT)
+    worst_solo = max(worst_solo, err_dbfs(
+        np.concatenate([o[RELEASED_SLOT] for o in outs[CHANGE_AT:]]), new))
+    if not worst_solo <= -120.0:
+        raise AssertionError(f"pool vs solo chains: {worst_solo:.1f} dBFS > -120")
+    cpu = SessionPool(FLAGSHIP, n_slots=CPU_POOL_SLOTS, device="cpu")
+    for s in range(CPU_POOL_SLOTS):
+        cpu.claim()
+        for eid, name, value in FLAGSHIP_SLOT_PARAMS:
+            cpu.update_param(s, eid, name, value(s))
+    for b in range(CPU_POOL_BLOCKS):
+        o = cpu.step_blocks({s: streams[s][b] for s in range(CPU_POOL_SLOTS)})
+        for s in range(CPU_POOL_SLOTS):
+            worst_cpu = max(worst_cpu, err_dbfs(outs[b][s], o[s]))
+    if not worst_cpu <= DBFS_TOL:
+        raise AssertionError(f"card pool vs CPU pool: {worst_cpu:.1f} dBFS > {DBFS_TOL}")
+    x = {s: streams[s][0] for s in range(POOL_SLOTS)}
+    k_pool, c_pool, busy_pool = kernels_per_step(lambda: pool.step_blocks(x))
+    chain, state, tmap = build_chain(FLAGSHIP, FS, BLOCK, device="cuda")
+    tg = chain.targets(tmap)
+    xb = torch.from_numpy(streams[0][0][None]).to(chain.device)
+    k_solo, c_solo, busy_solo = kernels_per_step(lambda: chain.process_block(state, tg, xb))
+    phase("pool_flagship", slots=POOL_SLOTS, blocks=STREAM_BLOCKS, wall_s=wall,
+          step_ms_mean=1000.0 * wall / STREAM_BLOCKS, launches=counts,
+          dedicated_launches=counts_d, bitwise_vs_dedicated_pool=True,
+          vs_solo_chain_dbfs=worst_solo, vs_cpu_pool_dbfs=worst_cpu,
+          kernels_per_pool_step=k_pool, kernels_per_solo_step=k_solo,
+          copies_per_pool_step=c_pool, copies_per_solo_step=c_solo,
+          device_busy_ms_per_pool_step=busy_pool, device_busy_ms_per_solo_step=busy_solo)
+    return counts
+
+
+def preset_cfg(name):
+    return FLAGSHIP if name == "flagship" else DEFAULT_PRESETS[name]
+
+
+def timed_steps(cfg, slots, mono, steps, pipelined, need=None):
+    """Host-clock ms of ``steps`` pool steps (every slot streaming) after 10
+    warm-up steps; the synchronous step waits for its readback, the
+    pipelined one for the previous step's.  Counted from zeroed launch
+    counters when ``need`` names the path's kernel."""
+    pool = SessionPool(cfg, n_slots=slots, device="cuda")
+    x = mono[:, 0]
+    blocks = [{s: x[(b * slots + s) * BLOCK % (x.shape[0] - BLOCK):][:BLOCK]
+               for s in range(slots)} for b in range(steps + 10)]
+    step = pool.step_blocks_pipelined if pipelined else pool.step_blocks
+    for b in blocks[:10]:
+        step(b)
+
+    def run():
+        lat = []
+        for b in blocks[10:]:
+            t0 = time.perf_counter()
+            step(b)
+            lat.append(1000.0 * (time.perf_counter() - t0))
+        return lat
+
+    lat, counts = count_launches(run, need=(need,) if need else (), per_block=steps)
+    if pipelined:
+        pool.flush_pipeline()
+    lat.sort()
+    p99 = lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))]
+    return {"p50_ms": statistics.median(lat), "p99_ms": p99, "max_ms": lat[-1],
+            "launches": counts}, pool
+
+
+def pool_timing(mono):
+    """Pool step p50/p99 (synchronous and pipelined) at S = 1, 16, 64 for
+    the flagship, "Lush Chorus" and "Rain Delay"; the largest S of a
+    doubling sweep (S = 1 .. 256) whose synchronous p99 stays within the
+    deadline (streams per card); kernels per step and the device busy
+    share of a step at each S."""
+    need = {"flagship": "octaver_step", "Lush Chorus": "chorus_step", "Rain Delay": None}
+    out = {}
+    for name in POOL_PRESETS:
+        cfg = preset_cfg(name)
+        rows = {}
+        for slots in SLOT_GRID_S:
+            sync, pool = timed_steps(cfg, slots, mono, TIMED_STEPS, False, need[name])
+            pipe, _ = timed_steps(cfg, slots, mono, TIMED_STEPS, True, need[name])
+            xb = {s: mono[s * BLOCK:(s + 1) * BLOCK, 0] for s in range(slots)}
+            kern, copies, busy = kernels_per_step(lambda: pool.step_blocks(xb))
+            rows[slots] = {"sync": sync, "pipelined": pipe, "kernels_per_step": kern,
+                           "copies_per_step": copies, "device_busy_ms": busy,
+                           "device_busy_share": busy / sync["p50_ms"]}
+            phase("pool_step", chain=name, slots=slots, deadline_ms=BUDGET_MS, **rows[slots])
+        # Every S of the sweep is measured: on a host-bound step p99 is not
+        # monotone in S, so the first miss does not end the search.
+        sweep = {}
+        for slots in SWEEP_S:
+            t = rows[slots]["sync"] if slots in rows else timed_steps(
+                cfg, slots, mono, TIMED_STEPS, False, need[name])[0]
+            sweep[slots] = {"p50_ms": t["p50_ms"], "p99_ms": t["p99_ms"]}
+        fits = max((k for k, v in sweep.items() if v["p99_ms"] <= BUDGET_MS), default=0)
+        out[name] = {"streams_per_card": fits, "sweep": sweep}
+        phase("pool_streams_per_card", chain=name, deadline_ms=BUDGET_MS,
+              streams_per_card=fits, sweep_sync_p99=sweep)
+    return out
+
+
+def pool_multi(mono):
+    """A MultiPool of two buckets at 16 slots: the flagship default bucket
+    and "Lush Chorus".  Session A stays on the default bucket, B migrates by
+    ``build_session`` and gets an ``update_param`` through its id map at
+    block 8, C joins B's running bucket with its own ids and params at block
+    12; each bit-equal to a dedicated pool on the card, 24 blocks."""
+    lush = DEFAULT_PRESETS["Lush Chorus"]
+    lush_c = [dict(c, effect_id=f"c-{c['effect_id']}", params={**c["params"], **extra})
+              for c, extra in zip(lush, ({"rate_hz": 1.7, "depth_ms": 6.0}, {"rt60_s": 3.0}))]
+    x = mono[:, 0]
+
+    def run():
+        mp = MultiPool(FLAGSHIP, n_slots=POOL_SLOTS, device="cuda")
+        sa, sb0 = mp.default_pool.claim(), mp.default_pool.claim()
+        key_b, pool_b, sb, _, _, idmap_b = mp.build_session(lush, current=(mp.default_pool, sb0))
+        if pool_b is mp.default_pool or sb is None:
+            raise AssertionError("build_session did not migrate to a new bucket")
+        mp.default_pool.release(sb0)
+        dedicated = {k: SessionPool(c, n_slots=POOL_SLOTS, device="cuda")
+                     for k, c in (("a", FLAGSHIP), ("b", lush), ("c", lush_c))}
+        ra, rb = dedicated["a"].claim(), dedicated["b"].claim()
+        sc = rc = None
+        for b in range(24):
+            xa, xb, xc = (x[(3 * b + k) * BLOCK:(3 * b + k + 1) * BLOCK] for k in range(3))
+            if b == 8:
+                pool_b.update_param(sb, idmap_b["lc1"], "rate_hz", 2.5)
+                dedicated["b"].update_param(rb, "lc1", "rate_hz", 2.5)
+            if b == 12:
+                key_c, pool_c, sc, _, _, idmap_c = mp.build_session(lush_c)
+                if pool_c is not pool_b or key_c != key_b or sc in (None, sb):
+                    raise AssertionError("session C did not join B's bucket")
+                rc = dedicated["c"].claim()
+            oa = mp.default_pool.step_blocks({sa: xa})[sa]
+            ob = pool_b.step_blocks({sb: xb} | ({sc: xc} if sc is not None else {}))
+            pairs = [(oa, dedicated["a"].step_blocks({ra: xa})[ra]),
+                     (ob[sb], dedicated["b"].step_blocks({rb: xb})[rb])]
+            if sc is not None:
+                pairs.append((ob[sc], dedicated["c"].step_blocks({rc: xc})[rc]))
+            for got, want in pairs:
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"MultiPool block {b}: a session differs from its "
+                                         "dedicated pool")
+        return len(mp.buckets())
+
+    n_buckets, counts = count_launches(run, need=("octaver_step", "chorus_step"))
+    phase("pool_multipool", buckets=n_buckets, slots=POOL_SLOTS, blocks=24, bitwise=True,
+          launches=counts)
+
+
+class FakeWebSocket:
+    """An in-process websocket: an async iterator over the client's
+    messages (each sent after the previous reply arrived) and a ``send``
+    that records the server's."""
+
+    def __init__(self, messages):
+        self.messages = messages
+        self.sent = []
+        self._replied = asyncio.Event()
+
+    async def send(self, msg):
+        self.sent.append(json.loads(msg))
+        self._replied.set()
+
+    def __aiter__(self):
+        return self._gen()
+
+    async def _gen(self):
+        for msg, waits in self.messages:
+            if waits:
+                self._replied.clear()
+            yield json.dumps(msg)
+            if waits:
+                await asyncio.wait_for(self._replied.wait(), 120)
+
+
+def pool_server(mono):
+    """``PoolServer.handler`` over a fake websocket on a 16-slot flagship
+    pool: session_ready, stream_block -> processed_block (against a
+    dedicated pool), build_chain -> chain_built ("Lush Chorus"),
+    update_param with ack, get_pool_stats, and "pool full"."""
+    x = mono[:, 0]
+    blocks = [x[i * BLOCK:(i + 1) * BLOCK] for i in range(12)]
+    msgs = [({"command": "stream_block", "audio": b.tolist()}, True) for b in blocks[:6]]
+    msgs += [({"command": "update_param", "effect_id": "o", "param": "semitones",
+               "value": 5.0, "ack": True}, True),
+             ({"command": "build_chain", "effects_config": DEFAULT_PRESETS["Lush Chorus"]}, True)]
+    msgs += [({"command": "stream_block", "audio": b.tolist()}, True) for b in blocks[6:]]
+    msgs += [({"command": "get_pool_stats"}, True)]
+
+    async def scenario():
+        pool = SessionPool(FLAGSHIP, n_slots=POOL_SLOTS, device="cuda")
+        srv = PoolServer(pool)
+        batcher = asyncio.create_task(srv.batcher())
+        try:
+            client = FakeWebSocket(msgs)
+            await srv.handler(client)
+            held = [pool.claim() for _ in range(POOL_SLOTS)]
+            refused = FakeWebSocket([])
+            await srv.handler(refused)
+            for s in held:
+                pool.release(s)
+        finally:
+            batcher.cancel()
+            for task in srv._tasks.values():
+                task.cancel()
+        return client.sent, refused.sent
+
+    (sent, refused), counts = count_launches(lambda: asyncio.run(scenario()),
+                                             need=("octaver_step", "chorus_step"))
+    kinds = [m["type"] for m in sent]
+    want = (["session_ready"] + ["processed_block"] * 6 + ["param_ack", "chain_built"]
+            + ["processed_block"] * 6 + ["pool_stats"])
+    if kinds != want or refused != [{"type": "error", "error": "pool full"}]:
+        raise AssertionError(f"pool server replies {kinds}, refused {refused}")
+    ref = SessionPool(FLAGSHIP, n_slots=POOL_SLOTS, device="cuda")
+    r = ref.claim()
+    for i, m in enumerate(sent[1:7]):
+        want_out = ref.step_blocks({r: blocks[i]})[r]
+        got = np.stack([m["output"], m["output_r"]], 1)
+        if err_dbfs(got, want_out) > DBFS_TOL:  # the JSON carries 5 significant digits
+            raise AssertionError(f"processed_block {i} differs from a dedicated pool")
+    stats = sent[-1]
+    if not (sent[7]["ok"] and stats["n_buckets"] == 2 and isinstance(stats["realtime_ok"], bool)
+            and stats["step_ms"] > 0):
+        raise AssertionError(f"pool server: ack {sent[7]}, stats {stats}")
+    phase("pool_server", replies=len(sent), launches=counts, step_ms=stats["step_ms"],
+          realtime_ok=stats["realtime_ok"], total_step_ms=stats["total_step_ms"],
+          buckets=stats["buckets"])
+
+
 def main():
     card, _ = probe()
     dev = torch.device("cuda")
@@ -869,15 +1333,25 @@ def main():
     phase("session_layer_walls", seconds=walls, total_s=sum(walls.values()))
     shutil.rmtree(WORK, ignore_errors=True)
 
+    # Phase 10: the multi-session pool.
+    walls = {}
+    grids, walls["slot_grids"] = timed_phase(lambda: check_slot_grids(dev))
+    for step, fn in (("pool_flagship", lambda: pool_flagship(mono)),
+                     ("pool_timing", lambda: pool_timing(mono)),
+                     ("pool_multipool", lambda: pool_multi(mono)),
+                     ("pool_server", lambda: pool_server(mono))):
+        _, walls[step] = timed_phase(fn)
+    phase("pool_walls", seconds=walls, total_s=sum(walls.values()))
+
     print(json.dumps({"kernels": [
         {"name": "octaver_step", "route": "cuda", "source": "aefs_tpu_torch/csrc/resample.cu",
          "replaces": "aefs_tpu/ops/pallas/resample.py:133", "launches": LAUNCHES["octaver_step"],
-         **k1},
+         **k1, "slot_grid": grids["octaver"]},
         {"name": "comb_sums", "route": "cuda", "source": "aefs_tpu_torch/csrc/comb.cu",
          "replaces": "aefs_tpu/ops/pallas/comb.py:145", "launches": LAUNCHES["comb_sums"], **k2},
         {"name": "chorus_step", "route": "cuda", "source": "aefs_tpu_torch/csrc/resample.cu",
          "replaces": "aefs_tpu/ops/pallas/resample.py:64",
-         "launches": LAUNCHES["chorus_step"], **k3},
+         "launches": LAUNCHES["chorus_step"], **k3, "slot_grid": grids["chorus"]},
         {"name": "comb_chunks", "route": "cuda", "source": "aefs_tpu_torch/csrc/comb.cu",
          "replaces": "aefs_tpu/ops/pallas/comb.py:62", "launches": LAUNCHES["comb_chunks"], **k4},
     ]}), flush=True)

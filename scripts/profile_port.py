@@ -1,6 +1,6 @@
 """Where the PyTorch port's time goes on one CUDA card.
 
-    python3 scripts/profile_port.py [--preset NAME] [--blocks 40] [--out OUT.json]
+    python3 scripts/profile_port.py [--preset NAME] [--blocks 40] [--pool S] [--out OUT.json]
 
 Profiles the flagship chain (``aefs_tpu_torch.engine.flagship``), or the factory
 preset ``--preset`` names, of ``aefs_tpu_torch`` two ways, on the card,
@@ -9,7 +9,10 @@ under ``torch.profiler``:
 - streaming: ``AudioEngine.process_stream_block`` on 256-sample blocks of
   the demo's mono mix (``--blocks`` profiled blocks after a warm-up);
 - file mode: ``process_offline`` of the whole demo file (one warm render
-  first, then one profiled render).
+  first, then one profiled render);
+- with ``--pool S``: ``SessionPool.step_blocks`` of a pool of S slots
+  (aefs_tpu_torch/server/pool.py), every slot streaming its own part of
+  the demo, one synchronous pool step per profiled step.
 
 For the profiled runs only, each effect's ``process`` / ``process_file``
 is wrapped in a ``record_function`` span named after its kind; the package
@@ -177,6 +180,27 @@ def streaming(cfg, mono, n_blocks):
     return summarize(prof, n_blocks, wall)
 
 
+def pool_steps(cfg, mono, n_blocks, slots):
+    from aefs_tpu_torch.server.pool import SessionPool
+
+    pool = SessionPool(cfg, n_slots=slots, device="cuda")
+    x = mono[:, 0]
+    steps = [{s: x[(b * slots + s) * BLOCK % (x.shape[0] - BLOCK):][:BLOCK]
+              for s in range(slots)} for b in range(3 * n_blocks)]
+    lat = []
+    for blocks in steps[:2 * n_blocks]:  # warm-up, then unprofiled timing
+        t0 = time.perf_counter()
+        pool.step_blocks(blocks)  # waits for its readback: synchronized
+        lat.append(1000.0 * (time.perf_counter() - t0))
+    wall = statistics.median(lat[n_blocks:])
+    torch.cuda.synchronize()
+    with effect_spans(), _profiler() as prof:
+        for blocks in steps[2 * n_blocks:]:
+            pool.step_blocks(blocks)
+        torch.cuda.synchronize()
+    return summarize(prof, n_blocks, wall)
+
+
 def file_mode(cfg, demo, fs):
     process_offline(cfg, demo, fs, device="cuda")  # warm: cuBLAS, allocator
     torch.cuda.synchronize()
@@ -194,6 +218,8 @@ def main(argv=None):
     ap.add_argument("--preset", choices=sorted(DEFAULT_PRESETS),
                     help="factory preset to profile (default: the flagship chain)")
     ap.add_argument("--blocks", type=int, default=40, help="profiled streaming blocks")
+    ap.add_argument("--pool", type=int, default=0, metavar="S",
+                    help="also profile the steps of a pool of S slots")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile_port.json"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -211,6 +237,8 @@ def main(argv=None):
         "streaming": streaming(cfg, mono, args.blocks),
         "file_mode": file_mode(cfg, demo, fs),
     }
+    if args.pool:
+        result["pool"] = {"slots": args.pool, **pool_steps(cfg, mono, args.blocks, args.pool)}
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))

@@ -526,3 +526,146 @@ def test_multiband_master_card_matches_cpu(dev):
         _, outs[d] = chain.process_array(state, chain.targets(tmap), x)
     err = float(np.max(np.abs(outs["cuda"].astype(np.float64) - outs["cpu"])))
     assert err == 0.0 or 20.0 * np.log10(err) <= -90.0, err
+
+
+# --- The slot grids (the serving pool): one launch steps S slots ----------
+
+def _slot_run(step, dev, kind, slots, blocks, seed, n=256):
+    """``blocks`` blocks of noise through a step with a leading slot axis,
+    each slot with its own params: the octaver's semitones spread over
+    [-24, 24] with slot 0 gliding (a re-anchor mid-run) and one slot from
+    n_abs near 2^28, different mixes; the chorus's rates spread over
+    [0.1, 9.5] with slot 0 changing mid-run and one slot whose delay law the
+    clamp cuts.  ``step`` takes the whole batch (``_per_slot`` wraps a
+    step that runs slot by slot).  Returns (outputs per block, final state,
+    kernel launches meanwhile)."""
+    from aefs_tpu_torch.models.octaver import Octaver
+    from aefs_tpu_torch.ops.kernels.resample import chorus_step, octaver_step
+
+    rng = np.random.default_rng(seed)
+    lin = torch.linspace(0.0, 1.0, slots, device=dev)
+    if kind == "octaver":
+        one = Octaver(48000, n, device=dev).init_state()
+        st = {k: v.expand((slots,) + v.shape).clone() for k, v in one.items()}
+        st["hist"] = _noise(rng, st["hist"].shape, dev)
+        st["n_abs"][-1] = (1 << 28) - 300
+        mix = 0.1 + 0.8 * lin
+        kernel = octaver_step
+    else:
+        st = {"hist": _noise(rng, (slots, 2, 2408), dev),
+              "ph_hi": 0.9 * lin, "ph_lo": torch.zeros(slots, device=dev)}
+        fixed = {"depth_ms": 2.0 + 8.0 * lin, "base_ms": 14.0 + 20.0 * lin,
+                 "mix": 0.2 + 0.8 * lin, "spread": 0.5 * lin}
+        fixed["depth_ms"][-1], fixed["base_ms"][-1] = 10.0, 1.0  # the clamp cuts it
+        kernel = chorus_step
+    ys, before = [], kernel.launches
+    for b in range(blocks):
+        x = _noise(rng, (slots, 2, n), dev)
+        if kind == "octaver":
+            semis = -24.0 + 48.0 * lin
+            semis[0] = -12.0 if b < blocks // 2 else -5.0
+            p = {"semitones": semis, "mix": mix}
+        else:
+            rates = 0.1 + 9.4 * lin
+            rates[0] = 0.6 if b < blocks // 2 else 4.0
+            p = {**fixed, "rate_hz": rates}
+        st, y = step(st, p, x)
+        ys.append(y)
+    torch.cuda.synchronize()
+    return ys, st, kernel.launches - before
+
+
+def _per_slot(step, fs=None):
+    """``step`` applied slot by slot without slot dims (S = 1 launches on
+    the card), results stacked back along the slot axis."""
+    def run(st, p, x):
+        outs = []
+        for s in range(x.shape[0]):
+            args = ({k: v[s] for k, v in st.items()}, {k: v[s] for k, v in p.items()}, x[s])
+            outs.append(step(*args) if fs is None else step(*args, fs))
+        return ({k: torch.stack([o[0][k] for o in outs]) for k in outs[0][0]},
+                torch.stack([o[1] for o in outs]))
+    return run
+
+
+@pytest.mark.parametrize("slots", [1, 3, 16])
+@pytest.mark.parametrize("kind", ["octaver", "chorus"])
+def test_step_kernel_slot_grid_bitwise(dev, kind, slots):
+    """K1 and K3 with a slot grid: one launch per block for all slots, each
+    slot bit-equal to the plain step on that slot and to an S = 1 launch on
+    that slot's inputs, over 8 blocks (state leaves included)."""
+    from aefs_tpu_torch.ops.kernels.resample import (
+        chorus_step, chorus_step_plain, octaver_step, octaver_step_plain)
+
+    if kind == "octaver":
+        kern, plain, fs = octaver_step, octaver_step_plain, None
+    else:
+        kern = lambda st, p, x: chorus_step(st, p, x, 48000)  # noqa: E731
+        plain = lambda st, p, x: chorus_step_plain(st, p, x, 48000)  # noqa: E731
+        fs = 48000
+    got = _slot_run(kern, dev, kind, slots, 8, seed=40 + slots)
+    assert got[2] == 8
+    _assert_runs_bitwise(got, _slot_run(plain, dev, kind, slots, 8, seed=40 + slots))
+    single = _per_slot(octaver_step if kind == "octaver" else chorus_step, fs)
+    ref = _slot_run(single, dev, kind, slots, 8, seed=40 + slots)
+    assert ref[2] == 8 * slots
+    _assert_runs_bitwise(got, ref)
+
+
+def test_step_kernels_reject_bad_slot_operands(dev):
+    """A param or state scalar whose slot dims differ from x's is refused
+    before any launch."""
+    from aefs_tpu_torch.models.octaver import Octaver
+    from aefs_tpu_torch.ops.kernels.resample import chorus_step, octaver_step
+
+    one = Octaver(48000, 256, device=dev).init_state()
+    st = {k: v.expand((4,) + v.shape).clone() for k, v in one.items()}
+    p = {"semitones": torch.full((4,), -12.0, device=dev), "mix": torch.full((4,), 0.4, device=dev)}
+    x = torch.zeros((4, 2, 256), device=dev)
+    cst = {"hist": torch.zeros((4, 2, 2408), device=dev), "ph_hi": torch.zeros(4, device=dev),
+           "ph_lo": torch.zeros(4, device=dev)}
+    cp = {k: torch.full((4,), v, device=dev) for k, v in (("rate_hz", 0.6), ("depth_ms", 4.0),
+          ("base_ms", 14.0), ("mix", 0.5), ("spread", 0.25))}
+    bad_oct = [
+        ({**st, "hist": st["hist"][:3]}, p, x),
+        ({**st, "n_abs": st["n_abs"][0]}, p, x),
+        (st, {**p, "mix": torch.tensor(0.4, device=dev)}, x),
+        (st, {**p, "semitones": torch.full((8,), -12.0, device=dev)[::2]}, x),  # strided
+    ]
+    bad_cho = [
+        ({**cst, "hist": cst["hist"][:, :1]}, cp, x),
+        ({**cst, "ph_hi": cst["ph_hi"][:2]}, cp, x),
+        (cst, {**cp, "rate_hz": torch.tensor(0.6, device=dev)}, x),
+    ]
+    before = (octaver_step.launches, chorus_step.launches)
+    for args in bad_oct:
+        with pytest.raises(ValueError):
+            octaver_step(*args)
+    for args in bad_cho:
+        with pytest.raises(ValueError):
+            chorus_step(*args, 48000)
+    assert (octaver_step.launches, chorus_step.launches) == before
+
+
+def test_pool_step_launches_each_step_kernel_once(dev):
+    """A flagship pool and a "Lush Chorus" pool of 16 slots on the card:
+    K1 (resp. K3) launches once per pool step, and each slot renders what
+    the CPU pool renders."""
+    from aefs_tpu_torch.core.config import DEFAULT_PRESETS
+    from aefs_tpu_torch.engine.flagship import FLAGSHIP
+    from aefs_tpu_torch.ops.kernels.resample import chorus_step, octaver_step
+    from aefs_tpu_torch.server.pool import SessionPool
+
+    x = (0.25 * np.random.default_rng(12).standard_normal((6, 16, 256))).astype(np.float32)
+    for cfg, kernel in ((FLAGSHIP, octaver_step), (DEFAULT_PRESETS["Lush Chorus"], chorus_step)):
+        outs = {}
+        for d in ("cuda", "cpu"):
+            pool = SessionPool(cfg, n_slots=16, device=d)
+            before = kernel.launches
+            outs[d] = [pool.step_blocks({s: x[b, s] for s in range(16)}) for b in range(6)]
+            assert kernel.launches - before == (6 if d == "cuda" else 0)
+        for b in range(6):
+            for s in range(16):
+                err = float(np.max(np.abs(outs["cuda"][b][s].astype(np.float64)
+                                          - outs["cpu"][b][s])))
+                assert err == 0.0 or 20.0 * np.log10(err) <= -90.0, (b, s, err)

@@ -47,7 +47,8 @@ def test_no_jax_import(rel):
 @pytest.mark.parametrize("rel", [
     "aefs_tpu_torch/engine/checkpoint.py", "aefs_tpu_torch/engine/devices.py",
     "aefs_tpu_torch/utils/analysis.py", "aefs_tpu_torch/utils/metrics.py",
-    "aefs_tpu_torch/utils/platform.py", "aefs_tpu_torch/utils/tempo.py"])
+    "aefs_tpu_torch/utils/platform.py", "aefs_tpu_torch/utils/tempo.py",
+    "aefs_tpu_torch/server/__init__.py", "aefs_tpu_torch/server/pool.py"])
 def test_scan_covers_session_layer_modules(rel):
     """The import scan above walks every module of the port, these too."""
     assert rel in PORT_FILES
