@@ -89,8 +89,8 @@ def render_batch(chain_config, audios, fs, superblock=FILE_SUPERBLOCK,
     The chain is built once; each file then runs ``process_whole`` from its
     own ``chain.init_state()``, one after another on the device.
     ``shard=True`` with one visible card renders exactly as
-    ``shard=False`` (as JAX does on one device); across several cards it
-    needs the data axis of ``parallel/mesh.py``, which is not ported.
+    ``shard=False`` (as JAX does on one device); the port's mesh
+    (``parallel/mesh.py``) covers one card, so several cards raise.
 
     audios: list of (frames_i,) or (frames_i, ch) arrays, one sample rate.
     Returns a list of (frames_i, 2) float32 clipped outputs.
@@ -98,8 +98,8 @@ def render_batch(chain_config, audios, fs, superblock=FILE_SUPERBLOCK,
     device = require_device(device)
     if shard and device.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
-            "render_batch(shard=True) over more than one card needs the data "
-            "axis of parallel/mesh.py, which aefs_tpu_torch does not port yet")
+            "render_batch(shard=True) over more than one card is not supported: "
+            "the mesh of aefs_tpu_torch covers one card")
     monos = []
     for a in audios:
         a = np.asarray(a, np.float32)

@@ -8,7 +8,10 @@ and file renders at non-octave ratios) is one call of the block step K1
 (``ops/kernels/resample.py:octaver_step``): phase, both taps, gains, blend
 and the new state in one launch on the card, its plain eager version on the
 CPU.  Whole-octave file renders take the exact closed-form grid taps
-(ops/gridtaps.py).
+(ops/gridtaps.py), and so does the exact-grid streaming specialization
+(``grid_semitones``, which the pool's grid mode bakes): an integer phase
+numerator and the taps on the rational grid every block, with only ``mix``
+live.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from aefs_tpu_torch.core.params import ParamSpec
+from aefs_tpu_torch.core.params import ParamSpec, lead
 from aefs_tpu_torch.models.base import EffectModel
 from aefs_tpu_torch.ops.kernels.resample import octaver_step
 from aefs_tpu_torch.ops.ringbuf import ring_push
@@ -43,27 +46,56 @@ class Octaver(EffectModel):
                  file_semitones=None, resample_tile=None,
                  grid_semitones=None, grid_phase_lock=False, **config):
         super().__init__(fs, blocksize, channels, **config)
-        if grid_semitones is not None or grid_phase_lock:
-            raise NotImplementedError(
-                "octaver grid_semitones (exact-grid streaming taps) is not "
-                "ported to aefs_tpu_torch yet")
         # Grain window; minimum size guards tiny rates (octaver.py:106).
         self.size = max(int(fs * float(window_ms) / 1000.0), 16)
         # ``resample_tile`` sizes the reference's TPU tiles; it is accepted
         # for config compatibility and ignored: K1 reads any block and ring
         # size, so every generic block takes it.
         # Whole-octave file mode: exact closed-form grid taps.
-        from aefs_tpu_torch.ops.gridtaps import pow2_exponent, pow2_geometry_ok
+        from aefs_tpu_torch.ops.gridtaps import (
+            pow2_exponent, pow2_geometry_ok, pow2_stream_geometry_ok)
 
         e = pow2_exponent(file_semitones)
         self._pow2_e = e if e is not None and pow2_geometry_ok(self.size, e) else None
+        # Whole-octave streaming specialization (opt-in static): the phase is
+        # an exact integer numerator and the taps are evaluated on the
+        # rational grid every block (gridtaps.octaver_taps_pow2_stream).  The
+        # ``semitones`` target is baked; only ``mix`` stays live.
+        ge = pow2_exponent(grid_semitones)
+        self._grid_e = (ge if ge is not None
+                        and pow2_stream_geometry_ok(self.size, ge, blocksize) else None)
+        # Phase-locked grid (the pool's grid mode): the integer phase arrives
+        # in a "grid_phase" pseudo-param its caller advances each block
+        # (server/pool.py, host-side), shared by every slot, instead of
+        # per-stream state.  Absolute grain phase is inaudible, so a session
+        # joining a running pool at the shared phase matches the reference
+        # from its own first block.
+        self._phase_lock = bool(grid_phase_lock) and self._grid_e is not None
+        if self._phase_lock:
+            self.PARAMS = {**self.PARAMS, "grid_phase": ParamSpec(0.0, 0.0, float(2 ** 24))}
+
+    def grid_phase_advance(self, n=None):
+        """(per-block advance, modulus) of the integer phase numerator: the
+        recurrence a phase-locking caller applies per block."""
+        e = self._grid_e
+        n = self.blocksize if n is None else int(n)
+        if e < 0:
+            d = 1 << (-e)
+            return (n * (d - 1)) % (d * self.size), d * self.size
+        r = 1 << e
+        return (-n * (r - 1)) % self.size, self.size
 
     def init_state(self):
+        dev = self.device
+        if self._grid_e is not None:
+            hist = torch.zeros((self.size,), device=dev)
+            if self._phase_lock:  # the phase arrives as the grid_phase param
+                return {"hist": hist}
+            return {"hist": hist, "num": torch.zeros((), dtype=_I32, device=dev)}
         # The phase is a pure function of the absolute sample index since
         # the last step change: n_abs counts samples since the anchor,
         # (base_hi, base_lo) is the DS phase at the anchor, semi_prev and
         # step_* identify the anchored step.
-        dev = self.device
         zero = torch.zeros((), device=dev)
         return {
             "hist": torch.zeros((self.size,), device=dev),
@@ -75,7 +107,29 @@ class Octaver(EffectModel):
             "step_lo": zero.clone(),
         }
 
+    def _process_grid(self, state, p, x):
+        """Exact-grid streaming step (``grid_semitones`` baked, only ``mix``
+        live): the phase is an integer numerator, so nothing accumulates in
+        float32 on the tap path."""
+        from aefs_tpu_torch.ops.gridtaps import octaver_taps_pow2_stream
+
+        mix = lead(p["mix"], 2)
+        mono = torch.mean(x, -2)  # octaver.py:126-128
+        num0 = p["grid_phase"] if self._phase_lock else state["num"]
+        s1, s2, p1, p2, num = octaver_taps_pow2_stream(state["hist"], mono, self._grid_e, num0)
+        two_pi = 2.0 * math.pi
+        g1 = 0.5 * (1.0 - torch.cos(two_pi * p1))  # octaver.py:66-67
+        g2 = 0.5 * (1.0 - torch.cos(two_pi * p2))
+        wet = s1 * g1 + s2 * g2
+        new_state = {"hist": ring_push(state["hist"], mono)}
+        if not self._phase_lock:
+            new_state["num"] = num
+        y = x * (1.0 - mix) + wet[..., None, :] * mix
+        return new_state, y
+
     def process(self, state, p, x):
+        if self._grid_e is not None:
+            return self._process_grid(state, p, x)
         return octaver_step(state, p, x)
 
     def process_file(self, state, p, x):

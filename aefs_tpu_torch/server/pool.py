@@ -69,6 +69,26 @@ except ImportError:  # the handler itself does not need the package
     ws = None
 
 
+def grid_static_overrides(chain_config):
+    """Exact-grid serving specialization (opt-in): bake every whole-octave
+    octaver's ratio so its streaming taps run on the integer phase grid
+    (ops/gridtaps.py:octaver_taps_pow2_stream), phase-locked to one shared
+    ``grid_phase`` the pool advances per dispatch; joining sessions start at
+    the shared phase.  The baked ``semitones`` stops being live
+    (update_param warns)."""
+    from aefs_tpu_torch.ops.gridtaps import pow2_exponent
+
+    overrides = {}
+    for i, cfg in enumerate(chain_config):
+        if cfg.get("type") != "octaver":
+            continue
+        st = cfg.get("params", {}).get("semitones", -12.0)
+        if pow2_exponent(st) is not None:
+            eid = cfg.get("effect_id") or f"fx{i}"
+            overrides[eid] = {"grid_semitones": float(st), "grid_phase_lock": True}
+    return overrides
+
+
 def dict_copy(m):
     return {k: dict(v) for k, v in m.items()}
 
@@ -119,26 +139,25 @@ class SessionPool:
                  blocksize: int = BLOCKSIZE, shard: bool = False,
                  grid: bool = False, device="cuda"):
         """shard=True on one device is what JAX does there: nothing; over
-        several cards it needs parallel/mesh.py, which is not ported.
-        grid=True (exact-grid octaver serving) is not ported.  ``device``:
-        the card unless the caller asks for the CPU (no fallback)."""
-        if grid:
-            raise NotImplementedError("exact-grid serving (grid=True, --grid) is not ported "
-                                      "to aefs_tpu_torch yet (ROADMAP queue 1, item 4.2)")
+        several cards it raises: the port's mesh covers one card.
+        grid=True bakes whole-octave octaver ratios for exact-grid serving
+        (see ``grid_static_overrides``).  ``device``: the card unless the
+        caller asks for the CPU (no fallback)."""
         self.device = require_device(device)
         if shard and self.device.type == "cuda" and torch.cuda.device_count() > 1:
             raise NotImplementedError(
-                "a pool sharded over several cards needs the data axis of "
-                "parallel/mesh.py, which aefs_tpu_torch does not port yet")
+                "a pool sharded over several cards is not supported: the mesh "
+                "of aefs_tpu_torch covers one card")
         self.n_slots = int(n_slots)
         self.fs = int(fs)
         self.blocksize = int(blocksize)
-        self.grid = False
+        self.grid = bool(grid)
         self.shard = bool(shard)
         self.chain_config = chain_config
         self.chain, single_state, self._tmap0 = build_chain(
             chain_config, fs, blocksize, channels_in=CHANNELS_IN,
-            channels_out=CHANNELS_OUT, device=self.device)
+            channels_out=CHANNELS_OUT, device=self.device,
+            static_overrides=grid_static_overrides(chain_config) if grid else None)
         self._fresh_single = single_state
         # Per-slot parameter targets: host-side maps + ONE host buffer
         # tbuf[row, slot] (row = (effect, param) in chain order), shipped
@@ -155,6 +174,14 @@ class SessionPool:
             self._tbuf[self._trows[(i, name)], :] = spec.clamp(
                 self._tmap0.get(self.chain.effects[i][0], {}).get(name, spec.default))
         self._tbuf0 = self._tbuf.copy()  # fresh-slot column template
+        # Phase-locked grid rows: one shared integer phase (every column
+        # equal), advanced host-side once per dispatch, never reset per slot.
+        # Below 2^24, so exact in the float32 buffer.
+        self._phase_rows = {
+            self._trows[(i, "grid_phase")]: model
+            for i, (eid, model) in enumerate(self.chain.effects)
+            if (i, "grid_phase") in self._trows
+        }
         self._readback = _Readback((self.n_slots, CHANNELS_OUT, self.blocksize), self.device)
         # (collect, slots) of the dispatch whose readback the NEXT step does.
         self._inflight = None
@@ -204,9 +231,12 @@ class SessionPool:
     def _slot_targets_held(self, slot: int, tmap):
         """Set one slot's targets from a {bucket-effect-id: {param: value}}
         map (missing params fall to spec defaults, values clamp like
-        SmoothParam.set_target).  Caller holds ``_ctrl_lock``."""
+        SmoothParam.set_target).  Caller holds ``_ctrl_lock``.  Shared
+        grid-phase rows keep the pool clock (release()'s rule)."""
         self._targets_maps[slot] = dict_copy(tmap)
         for (i, name), row in self._trows.items():
+            if row in self._phase_rows:
+                continue
             eid, model = self.chain.effects[i]
             spec = model.PARAMS[name]
             self._tbuf[row, slot] = spec.clamp(tmap.get(eid, {}).get(name, spec.default))
@@ -242,7 +272,10 @@ class SessionPool:
         host work: a leaving session never blocks on the device."""
         with self._ctrl_lock:
             self._targets_maps[slot] = dict_copy(self._tmap0)
+            keep = {r: self._tbuf[r, slot] for r in self._phase_rows}
             self._tbuf[:, slot] = self._tbuf0[:, slot]
+            for r, v in keep.items():  # the shared phase survives slot churn
+                self._tbuf[r, slot] = v
             self._pending_resets.append((slot, None))
             self._free.append(slot)
 
@@ -257,6 +290,11 @@ class SessionPool:
         if param not in model.PARAMS:
             return (f"Warning: parameter '{param}' in effect "
                     f"'{effect_id}' could not be updated")
+        if param == "semitones" and getattr(model, "_grid_e", None) is not None:
+            return ("Warning: 'semitones' is grid-specialized (static) in "
+                    "this pool and cannot be updated live")
+        if param == "grid_phase":
+            return "Warning: 'grid_phase' is pool-managed and not settable"
         eff_index = [eid for eid, _ in self.chain.effects].index(effect_id)
         with self._ctrl_lock:
             self._targets_maps[slot].setdefault(effect_id, {})[param] = float(value)
@@ -310,6 +348,13 @@ class SessionPool:
             self.state, y = self._step(self.state, self._put_targets(tbuf),
                                        torch.from_numpy(x).to(self.device))
             prev, self._inflight = self._inflight, (self._readback.launch(y), tuple(blocks))
+            # Advance the shared grid phase(s) for the block just enqueued
+            # (every slot stepped, idle ones on silence).
+            if self._phase_rows:
+                with self._ctrl_lock:
+                    for r, model in self._phase_rows.items():
+                        adv, mod = model.grid_phase_advance(self.blocksize)
+                        self._tbuf[r, :] = (self._tbuf[r, 0] + adv) % mod
             if prev is None:
                 self.last_step_ms = (time.perf_counter() - t0) * 1000.0
                 return None
@@ -519,7 +564,8 @@ class MultiPool:
         # reaches the card when the pool grafts it.
         chain_s, single, tmap_s = build_chain(
             canon, self.fs, self.blocksize, channels_in=CHANNELS_IN,
-            channels_out=CHANNELS_OUT, device="cpu")
+            channels_out=CHANNELS_OUT, device="cpu",
+            static_overrides=grid_static_overrides(canon) if self.grid else None)
         canon_ids = [eid for eid, _ in chain_s.effects]
 
         def place(pool):
@@ -867,7 +913,9 @@ async def main(argv=None):
     ap.add_argument("--shard", action="store_true",
                     help="distribute slots over all devices (one card: no effect)")
     ap.add_argument("--grid", action="store_true",
-                    help="exact-grid octaver serving (not ported: raises)")
+                    help="bake whole-octave octaver ratios for exact-grid "
+                         "serving (higher density + -80 dBFS parity; "
+                         "semitones stops being live)")
     ap.add_argument("--max-buckets", type=int, default=8,
                     help="max resident chain-topology buckets (one batched step per "
                          "distinct topology; sessions migrate between buckets via "

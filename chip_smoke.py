@@ -28,8 +28,8 @@ Drives the port's main path (aefs_tpu_torch) end to end on the card:
    against the same render on the CPU;
 8. streaming: ``AudioEngine(device="cuda")`` with the flagship chain,
    "Lush Chorus", "Concert Hall (Convolution)" and "Multiband Master",
-   375 blocks of 256 samples of the demo's mono mix each, against the CPU
-   engine;
+   375 blocks of 256 samples of the demo's mono mix each (120 for
+   "Multiband Master"), against the CPU engine;
 9. the session layer and the CLI's batch and resumable modes:
    ``render_batch`` of the flagship and "Lush Chorus" over three ragged
    files (the demo, its first 10 s, its last 7 s; K2 once per file, K3 once
@@ -46,9 +46,9 @@ Drives the port's main path (aefs_tpu_torch) end to end on the card:
 10. the multi-session pool (``aefs_tpu_torch.server.pool``): K1's and K3's
    slot grids against their plain steps and against S = 1 launches, bit for
    bit per slot, at S = 1, 16 and 64 over 40 blocks, timed beside their
-   bound; a flagship ``SessionPool`` of 16 slots over 375 blocks (every
+   bound; a flagship ``SessionPool`` of 16 slots over 150 blocks (every
    slot its own stream and params, an ``update_param``, a release and a new
-   claim at block 150) against each session's solo chain on the card, a
+   claim at block 75) against each session's solo chain on the card, a
    dedicated pool (bit for bit) and the CPU pool, with K1 once per pool
    step and the kernels per pool step against the solo step's; pool step
    p50/p99, synchronous and pipelined, at S = 1, 16 and 64 for the
@@ -57,13 +57,27 @@ Drives the port's main path (aefs_tpu_torch) end to end on the card:
    step; a ``MultiPool`` of two buckets (migration, a join, an
    ``update_param`` through the id map), bit for bit against dedicated
    pools; ``PoolServer.handler`` driven by a fake websocket.
+11. the serving front, as users start it: ``server.backend.handler`` over a
+   fake websocket (the flagship's ``process_file`` of the whole demo within
+   one 16-bit step of ``process_offline``, ``update_param`` and
+   ``reprocess_file``, ``stream_file`` equal to the engine's own file
+   stream, ``plot_data`` with its analysis, ``get_stats``, sessions,
+   ``set_ir``, ``learn_noise``, "Lush Chorus" streamed, a second client
+   refused; K1, K2 and K3 launched); ``ui.app.serve`` over HTTP (the config
+   and the assets); ``python -m aefs_tpu_torch.run`` as a subprocess (a real
+   client's round trip where ``websockets`` imports, both children gone
+   within 5 s of SIGTERM); the flagship's grid pool (``grid=True``) of 16
+   slots over 375 blocks, each slot against its grid solo chain fed the
+   pool's ``grid_phase`` and 3 slots against the CPU grid pool, K1 never
+   launched, step times beside the generic pool's; ``make_mesh`` and
+   ``ShardedStreams`` of 16 flagship streams, bit-equal to the pool.
 
-Every path of phases 6-10 runs from zeroed kernel launch counters, read
+Every path of phases 6-11 runs from zeroed kernel launch counters, read
 just after it; each fails if a kernel it runs was not launched.  The last
 slice's paths run none of the four kernels (their FFTs are cuFFT, as the
 JAX package's are ``jnp.fft`` outside Pallas); their counts are recorded.
-Phase 9 writes its scratch files under ``build/chip_smoke/`` and removes
-them.
+Phases 9 and 11 write their scratch files under ``build/chip_smoke/`` and
+remove them.
 
 Each kernel's record holds its time per wrapper call (CUDA events over
 back-to-back calls, host cost included), its device-only time (the kernel
@@ -84,13 +98,16 @@ from __future__ import annotations
 import asyncio
 import base64
 import json
+import os
 import pathlib
+import re
 import shutil
 import signal
 import statistics
 import subprocess
 import sys
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -111,7 +128,10 @@ from aefs_tpu_torch.ops.kernels.comb import (
 from aefs_tpu_torch.ops.kernels.resample import (
     chorus_step, chorus_step_plain, octaver_step, octaver_step_plain)
 from aefs_tpu_torch.ops.ringbuf import comb_bank_file_chunks, comb_chunk_size
-from aefs_tpu_torch.server.pool import MultiPool, PoolServer, SessionPool
+from aefs_tpu_torch.parallel.mesh import ShardedStreams, make_mesh
+from aefs_tpu_torch.server import backend
+from aefs_tpu_torch.server.pool import MultiPool, PoolServer, SessionPool, grid_static_overrides
+from aefs_tpu_torch.ui.app import ASSETS_DIR, config_payload, serve
 from aefs_tpu_torch.utils.analysis import PlotAnalyzer
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -119,6 +139,9 @@ DEMO = ROOT / "music" / "rain-demo.wav"
 FS = 48000
 BLOCK = 256
 STREAM_BLOCKS = 375  # 2 s at 48 kHz
+# "Multiband Master" streams 120 blocks (~100 ms each on the card, ~40 ms on
+# the CPU reference): cut from 375 to keep the whole run near half its limit.
+MULTIBAND_BLOCKS = 120
 BUDGET_MS = 1000.0 * BLOCK / FS  # 5.33 ms per block
 K2_SUM_TOL, K2_TAIL_TOL = 1e-5, 1e-4
 K4_Y_TOL, K4_DAMPED_TOL = K2_SUM_TOL, K2_TAIL_TOL
@@ -148,7 +171,7 @@ LAST_SLICE_PRESETS = ("Clean Noise Removal", "Crunch", "Concert Hall (Convolutio
 # Every wrapper's launch counter, by the name the kernels' record uses.
 COUNTERS = {"octaver_step": octaver_step, "comb_sums": comb_sums,
             "chorus_step": chorus_step, "comb_chunks": comb_chunks}
-LAUNCHES = {k: 0 for k in COUNTERS}  # summed over the paths of phases 6-10
+LAUNCHES = {k: 0 for k in COUNTERS}  # summed over the paths of phases 6-11
 POOL_SLOTS = 16  # the pool server's default width
 SLOT_GRID_S = (1, 16, 64)
 SLOT_GRID_BLOCKS = 40
@@ -504,11 +527,11 @@ def spectral_mask_flips(mono, threshold_db):
           above=int(decisions["cpu"].sum()), flips=flips)
 
 
-def streaming(name, cfg, mono, kernel=None):
-    """375 blocks through the card's engine from zeroed counters (``kernel``,
-    if the path has one, launched exactly once per block), against the CPU
-    engine."""
-    blocks = [mono[i * BLOCK:(i + 1) * BLOCK] for i in range(STREAM_BLOCKS)]
+def streaming(name, cfg, mono, kernel=None, n_blocks=STREAM_BLOCKS):
+    """``n_blocks`` blocks through the card's engine from zeroed counters
+    (``kernel``, if the path has one, launched exactly once per block),
+    against the CPU engine."""
+    blocks = [mono[i * BLOCK:(i + 1) * BLOCK] for i in range(n_blocks)]
     eng = AudioEngine(device="cuda")
     eng.build_chain(cfg)
 
@@ -521,9 +544,9 @@ def streaming(name, cfg, mono, kernel=None):
         return lat, outs
 
     (lat, outs), counts = count_launches(run, need=(kernel,) if kernel else (),
-                                         per_block=STREAM_BLOCKS)
+                                         per_block=n_blocks)
     got = np.concatenate(outs)
-    if got.shape != (STREAM_BLOCKS * BLOCK, 2) or not np.all(np.isfinite(got)):
+    if got.shape != (n_blocks * BLOCK, 2) or not np.all(np.isfinite(got)):
         raise AssertionError(f"streaming {name}: bad output {got.shape}")
     ref_eng = AudioEngine(device="cpu")
     ref_eng.build_chain(cfg)
@@ -535,7 +558,7 @@ def streaming(name, cfg, mono, kernel=None):
         raise AssertionError(f"streaming {name}: card vs CPU {err:.1f} dBFS > {DBFS_TOL}")
     lat_sorted = sorted(lat)
     p99 = lat_sorted[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))]
-    phase("streaming", chain=name, blocks=STREAM_BLOCKS, block=BLOCK, launches=counts,
+    phase("streaming", chain=name, blocks=n_blocks, block=BLOCK, launches=counts,
           vs_cpu_dbfs=err, median_ms=statistics.median(lat), p99_ms=p99,
           max_ms=max(lat), first_ms=lat[0], budget_ms=BUDGET_MS,
           within_budget_share=sum(t <= BUDGET_MS for t in lat) / len(lat),
@@ -937,7 +960,13 @@ FLAGSHIP_SLOT_PARAMS = ("g", "threshold_db", lambda s: -60.0 + 2.0 * s), \
     ("o", "semitones", lambda s: (-12.0, -7.0, 12.0)[s % 3]), \
     ("f", "cutoff_hz", lambda s: 1000.0 + 500.0 * s), \
     ("d", "feedback", lambda s: 0.1 + 0.04 * s)
-CHANGE_AT = 150
+# The flagship pool's depth (phase 10), cut from 375 blocks to keep the whole
+# run near half its time limit once phase 11 came; its change at block 75.
+POOL_BLOCKS, CHANGE_AT = 150, 75
+# The grid pool (phase 11): 375 blocks, the change at block 152.  The shared
+# phase cycles every 15 blocks (3840 / 256), so a join at block 150 would
+# start at phase 0 and not show that a new session takes the pool's phase.
+GRID_CHANGE_AT = 152
 CPU_POOL_SLOTS, CPU_POOL_BLOCKS = 3, 40
 UPDATED_SLOT, UPDATE = 3, ("o", "semitones", 7.0)
 RELEASED_SLOT = 5
@@ -945,51 +974,60 @@ RELEASED_SLOT = 5
 
 def pool_streams(mono, slots, blocks):
     """Each slot's stream: the demo's mono mix from its own offset (1 s
-    apart); one more for the session that claims a slot at CHANGE_AT."""
+    apart); one more for the session that claims a slot mid-run."""
     x = mono[:, 0]
     return [np.ascontiguousarray(x[s * FS:s * FS + blocks * BLOCK]).reshape(blocks, BLOCK)
             for s in range(slots + 1)]
 
 
-def drive_pool(pool, streams, blocks):
-    """The flagship pool's run: per-slot params, then at CHANGE_AT an
+def drive_pool(pool, streams, blocks, change_at=CHANGE_AT, slot_params=FLAGSHIP_SLOT_PARAMS,
+               update=UPDATE):
+    """The flagship pool's run: per-slot params, then at ``change_at`` an
     update_param on one slot and a release plus a new claim of another (the
     new session streams the extra stream).  Returns per block {slot: (N, 2)}."""
     for s in range(pool.n_slots):
         if pool.claim() != s:
             raise AssertionError("a fresh pool hands out slots in order")
-        for eid, name, value in FLAGSHIP_SLOT_PARAMS:
+        for eid, name, value in slot_params:
             if pool.update_param(s, eid, name, value(s)) is not None:
                 raise AssertionError(f"update_param {eid}.{name} refused")
     outs = []
     for b in range(blocks):
-        if b == CHANGE_AT:
-            pool.update_param(UPDATED_SLOT, *UPDATE)
+        if b == change_at:
+            pool.update_param(UPDATED_SLOT, *update)
             pool.release(RELEASED_SLOT)
             if pool.claim() != RELEASED_SLOT:
                 raise AssertionError("the released slot was not handed out again")
         blocks_b = {s: streams[s][b] for s in range(pool.n_slots)}
-        if b >= CHANGE_AT:
-            blocks_b[RELEASED_SLOT] = streams[pool.n_slots][b - CHANGE_AT]
+        if b >= change_at:
+            blocks_b[RELEASED_SLOT] = streams[pool.n_slots][b - change_at]
         outs.append(pool.step_blocks(blocks_b))
     return outs
 
 
-def solo_session(dev, stream, params, blocks, update=None):
-    """One session's solo chain (``Chain.process_block``) on ``dev``."""
-    chain, state, tmap = build_chain(FLAGSHIP, FS, BLOCK, device=dev)
+def solo_session(dev, stream, params, blocks, update=None, grid_phase=None):
+    """One session's solo chain (``Chain.process_block``) on ``dev``; with
+    ``grid_phase`` = (first phase, advance, modulus), the grid chain fed the
+    grid pool's shared phase from its first block on."""
+    overrides = grid_static_overrides(FLAGSHIP) if grid_phase else None
+    chain, state, tmap = build_chain(FLAGSHIP, FS, BLOCK, device=dev,
+                                     static_overrides=overrides)
     for eid, name, value in params:
         tmap.setdefault(eid, {})[name] = value
     targets = chain.targets(tmap)
+    octaver = [eid for eid, _ in chain.effects].index("o")
+    x = torch.from_numpy(np.ascontiguousarray(stream[:blocks])).to(chain.device)
     ys = []
     for b in range(blocks):
         if update is not None and b == update[0]:
             tmap[update[1]][update[2]] = update[3]
             targets = chain.targets(tmap)
-        state, y = chain.process_block(state, targets,
-                                       torch.from_numpy(stream[b][None]).to(chain.device))
-        ys.append(y.cpu().numpy().T)
-    return np.concatenate(ys)
+        if grid_phase:  # the pool's shared phase for this block, set in place
+            phase0, adv, mod = grid_phase
+            targets[octaver]["grid_phase"].fill_(float((phase0 + b * adv) % mod))
+        state, y = chain.process_block(state, targets, x[b][None])
+        ys.append(y)
+    return torch.cat(ys, -1).cpu().numpy().T
 
 
 def kernels_per_step(fn, steps=10):
@@ -1031,16 +1069,16 @@ def pool_flagship(mono):
     each session's solo chain on the card (<= -120 dBFS), a dedicated pool
     on the card (bit for bit) and the CPU pool (3 slots, 40 blocks,
     <= -90 dBFS); K1 once per pool step; kernels per pool step."""
-    streams = pool_streams(mono, POOL_SLOTS, STREAM_BLOCKS)
+    streams = pool_streams(mono, POOL_SLOTS, POOL_BLOCKS)
     pool = SessionPool(FLAGSHIP, n_slots=POOL_SLOTS, device="cuda")
     t0 = time.perf_counter()
-    outs, counts = count_launches(lambda: drive_pool(pool, streams, STREAM_BLOCKS),
-                                  need=("octaver_step",), per_block=STREAM_BLOCKS)
+    outs, counts = count_launches(lambda: drive_pool(pool, streams, POOL_BLOCKS),
+                                  need=("octaver_step",), per_block=POOL_BLOCKS)
     wall = time.perf_counter() - t0
     dedicated = SessionPool(FLAGSHIP, n_slots=POOL_SLOTS, device="cuda")
-    outs_d, counts_d = count_launches(lambda: drive_pool(dedicated, streams, STREAM_BLOCKS),
-                                      need=("octaver_step",), per_block=STREAM_BLOCKS)
-    for b in range(STREAM_BLOCKS):
+    outs_d, counts_d = count_launches(lambda: drive_pool(dedicated, streams, POOL_BLOCKS),
+                                      need=("octaver_step",), per_block=POOL_BLOCKS)
+    for b in range(POOL_BLOCKS):
         for s in range(POOL_SLOTS):
             if not np.array_equal(outs[b][s], outs_d[b][s]):
                 raise AssertionError(f"pool block {b} slot {s}: differs from a dedicated pool")
@@ -1049,10 +1087,10 @@ def pool_flagship(mono):
         params = [(eid, name, value(s)) for eid, name, value in FLAGSHIP_SLOT_PARAMS]
         got = np.concatenate([o[s] for o in outs])
         upd = (CHANGE_AT, *UPDATE) if s == UPDATED_SLOT else None
-        span = CHANGE_AT if s == RELEASED_SLOT else STREAM_BLOCKS
+        span = CHANGE_AT if s == RELEASED_SLOT else POOL_BLOCKS
         want = solo_session("cuda", streams[s], params, span, upd)
         worst_solo = max(worst_solo, err_dbfs(got[:span * BLOCK], want))
-    new = solo_session("cuda", streams[POOL_SLOTS], [], STREAM_BLOCKS - CHANGE_AT)
+    new = solo_session("cuda", streams[POOL_SLOTS], [], POOL_BLOCKS - CHANGE_AT)
     worst_solo = max(worst_solo, err_dbfs(
         np.concatenate([o[RELEASED_SLOT] for o in outs[CHANGE_AT:]]), new))
     if not worst_solo <= -120.0:
@@ -1074,8 +1112,8 @@ def pool_flagship(mono):
     tg = chain.targets(tmap)
     xb = torch.from_numpy(streams[0][0][None]).to(chain.device)
     k_solo, c_solo, busy_solo = kernels_per_step(lambda: chain.process_block(state, tg, xb))
-    phase("pool_flagship", slots=POOL_SLOTS, blocks=STREAM_BLOCKS, wall_s=wall,
-          step_ms_mean=1000.0 * wall / STREAM_BLOCKS, launches=counts,
+    phase("pool_flagship", slots=POOL_SLOTS, blocks=POOL_BLOCKS, wall_s=wall,
+          step_ms_mean=1000.0 * wall / POOL_BLOCKS, launches=counts,
           dedicated_launches=counts_d, bitwise_vs_dedicated_pool=True,
           vs_solo_chain_dbfs=worst_solo, vs_cpu_pool_dbfs=worst_cpu,
           kernels_per_pool_step=k_pool, kernels_per_solo_step=k_solo,
@@ -1088,12 +1126,12 @@ def preset_cfg(name):
     return FLAGSHIP if name == "flagship" else DEFAULT_PRESETS[name]
 
 
-def timed_steps(cfg, slots, mono, steps, pipelined, need=None):
+def timed_steps(cfg, slots, mono, steps, pipelined, need=None, grid=False):
     """Host-clock ms of ``steps`` pool steps (every slot streaming) after 10
     warm-up steps; the synchronous step waits for its readback, the
     pipelined one for the previous step's.  Counted from zeroed launch
     counters when ``need`` names the path's kernel."""
-    pool = SessionPool(cfg, n_slots=slots, device="cuda")
+    pool = SessionPool(cfg, n_slots=slots, device="cuda", grid=grid)
     x = mono[:, 0]
     blocks = [{s: x[(b * slots + s) * BLOCK % (x.shape[0] - BLOCK):][:BLOCK]
                for s in range(slots)} for b in range(steps + 10)]
@@ -1203,28 +1241,47 @@ def pool_multi(mono):
 
 class FakeWebSocket:
     """An in-process websocket: an async iterator over the client's
-    messages (each sent after the previous reply arrived) and a ``send``
-    that records the server's."""
+    messages and a ``send`` that records the server's replies with their
+    arrival times.  Each message is (msg, waits): ``waits`` False sends the
+    next one at once, True waits for any reply, a type name for a reply of
+    that type (others, such as plot_data, interleave).  ``msg`` may also be
+    a function (a coroutine function is awaited), run in its place."""
 
     def __init__(self, messages):
         self.messages = messages
         self.sent = []
+        self.times = []
         self._replied = asyncio.Event()
 
     async def send(self, msg):
         self.sent.append(json.loads(msg))
+        self.times.append(time.perf_counter())
         self._replied.set()
 
     def __aiter__(self):
         return self._gen()
 
+    async def _reply(self, kind, start):
+        """The first reply from index ``start`` on of type ``kind`` (any
+        type if ``kind`` is True), waiting for it."""
+        while True:
+            for i in range(start, len(self.sent)):
+                if kind is True or self.sent[i]["type"] == kind:
+                    return i
+            self._replied.clear()
+            await asyncio.wait_for(self._replied.wait(), 300)
+
     async def _gen(self):
         for msg, waits in self.messages:
-            if waits:
-                self._replied.clear()
+            if callable(msg):
+                res = msg()
+                if asyncio.iscoroutine(res):
+                    await res
+                continue
+            start = len(self.sent)
             yield json.dumps(msg)
             if waits:
-                await asyncio.wait_for(self._replied.wait(), 120)
+                await self._reply(waits, start)
 
 
 def pool_server(mono):
@@ -1282,6 +1339,378 @@ def pool_server(mono):
           buckets=stats["buckets"])
 
 
+# -- phase 11: the serving front ------------------------------------------------
+
+# The grid pool's per-slot params: the octaver's semitones are baked there
+# (update_param refuses them), so its mix takes their place.
+GRID_SLOT_PARAMS = (("g", "threshold_db", lambda s: -60.0 + 2.0 * s),
+                    ("o", "mix", lambda s: 0.2 + 0.04 * s),
+                    ("f", "cutoff_hz", lambda s: 1000.0 + 500.0 * s),
+                    ("d", "feedback", lambda s: 0.1 + 0.04 * s))
+GRID_UPDATE = ("o", "mix", 0.9)
+LUSH_STREAM_BLOCKS = 60
+LAUNCHER_CLIP_S = 2
+MESH_BLOCKS = 40
+
+
+def collapse_runs(kinds):
+    """Reply types with runs of stream_audio (however the pump batched the
+    blocks) written once."""
+    return [k for i, k in enumerate(kinds)
+            if k != "stream_audio" or i == 0 or kinds[i - 1] != "stream_audio"]
+
+
+def wav_steps(msg, ref):
+    """How far the WAV a file_processed message carries is from ``ref``
+    (frames, 2) written as a 16-bit WAV, in 16-bit steps (max over samples)."""
+    got = decode_wav(base64.b64decode(msg["processed_b64"].split(",")[1]))[0]
+    want = decode_wav(encode_wav_int16(ref, FS))[0]
+    if got.shape != want.shape:
+        raise AssertionError(f"WAV of {got.shape}, want {want.shape}")
+    return float(np.max(np.abs(got - want))) * 32768.0
+
+
+def backend_handler(demo, mono, work):
+    """``backend.handler`` (the WebSocket backend the UI talks to) on the card
+    over a fake websocket: the flagship's process_file of the whole demo
+    (its WAV within one 16-bit step of ``process_offline`` on the card), an
+    update_param and reprocess_file, stream_file (equal, after the wire's 5
+    digits, to ``AudioEngine.start_file_stream`` driven directly), plot_data
+    with its analysis, get_stats, save_session / resume_session, set_ir and
+    learn_noise, "Lush Chorus" streamed, and a second client refused."""
+    from aefs_tpu_torch import native
+
+    os.environ["AEFS_SESSIONS_DIR"] = str(work / "sessions")
+    rng = np.random.default_rng(7)
+    ir = (0.2 * rng.standard_normal((FS // 2, 2))
+          * np.exp(-np.arange(FS // 2) / (0.1 * FS))[:, None]).astype(np.float32)
+    room = (0.02 * rng.standard_normal((FS, 1))).astype(np.float32)
+    stream_url = data_url(mono[:STREAM_BLOCKS * BLOCK])
+    fx = DEFAULT_PRESETS["Clean Noise Removal"] + DEFAULT_PRESETS["Concert Hall (Convolution)"]
+    update = ("d", "feedback", 0.5)
+    stamps, refused = {}, []
+
+    async def second_client():
+        late = FakeWebSocket([({"command": "get_stats"}, False)])
+        await backend.handler(late)
+        refused.append(late.sent)
+
+    msgs = [({"command": "build_chain", "config": FLAGSHIP}, False),
+            (lambda: stamps.setdefault("file", time.perf_counter()), False),
+            ({"command": "process_file", "contents": data_url(demo)}, "file_processed"),
+            ({"command": "update_param", "effect_id": update[0], "param": update[1],
+              "value": update[2]}, False),
+            ({"command": "reprocess_file"}, "file_processed"),
+            ({"command": "stream_file", "contents": stream_url, "realtime": False},
+             "stream_audio_end"),
+            ({"command": "get_stats"}, "stats"),
+            ({"command": "save_session", "path": "flagship"}, "session_saved"),
+            ({"command": "resume_session", "path": "flagship"}, "session_resumed"),
+            ({"command": "build_chain", "config": fx}, False),
+            ({"command": "set_ir", "effect_id": "cv1", "contents": data_url(ir)}, "ir_set"),
+            ({"command": "learn_noise", "effect_id": "p6", "contents": data_url(room)},
+             "noise_learned"),
+            ({"command": "build_chain", "config": DEFAULT_PRESETS["Lush Chorus"]}, False),
+            ({"command": "stream_file", "contents": data_url(mono[:LUSH_STREAM_BLOCKS * BLOCK]),
+              "realtime": False}, "stream_audio_end"),
+            (second_client, False)]
+    client = FakeWebSocket(msgs)
+
+    def run():
+        t0 = time.perf_counter()
+        asyncio.run(backend.handler(client))
+        return time.perf_counter() - t0
+
+    wall, counts = count_launches(run, need=("octaver_step", "comb_sums", "chorus_step"))
+    if backend.connected_client is not None:
+        raise AssertionError("backend: the client slot was not freed")
+    kinds = [m["type"] for m in client.sent if m["type"] != "plot_data"]
+    want = ["file_processed", "file_processed", "stream_started", "stream_audio",
+            "stream_audio_end", "stats", "session_saved", "session_resumed", "ir_set",
+            "noise_learned", "stream_started", "stream_audio", "stream_audio_end"]
+    if collapse_runs(kinds) != want or refused != [[]]:
+        raise AssertionError(f"backend replies {collapse_runs(kinds)}, second client {refused}")
+    replies = [m for m in client.sent if m["type"] != "plot_data"]
+    files = [i for i, m in enumerate(client.sent) if m["type"] == "file_processed"]
+    file_s = client.times[files[0]] - stamps["file"]
+    audio = decode_wav(encode_wav_int16(demo, FS))[0]
+    cfg2 = json.loads(json.dumps(FLAGSHIP))
+    next(c for c in cfg2 if c["effect_id"] == update[0])["params"][update[1]] = update[2]
+    file_steps = [wav_steps(client.sent[i], process_offline(cfg, audio, FS, device="cuda")[1])
+                  for i, cfg in zip(files, (FLAGSHIP, cfg2))]
+    if max(file_steps) > 1:
+        raise AssertionError(f"backend process_file: {file_steps} 16-bit steps from "
+                             "process_offline")
+    # The first stream against the engine's own file stream, same chain and update.
+    eng = AudioEngine(device="cuda")
+    eng.build_chain(FLAGSHIP)
+    eng.update_param(*update)
+    if not eng.start_file_stream(stream_url, realtime=False):
+        raise AssertionError("direct file stream did not start")
+    items = []
+    while (item := eng.playback_queue.get(timeout=300)) is not None:
+        items.append(item)
+    eng.close()
+    ref = np.concatenate([b for _, b in items])
+    end = kinds.index("stream_audio_end")
+    streamed = [m for m in replies[:end] if m["type"] == "stream_audio"]
+    for ch, key in ((0, "left"), (1, "right")):
+        got = [v for m in streamed for v in m[key]]
+        if got != json.loads(native.json_f32_array(ref[:, ch])):
+            raise AssertionError(f"backend stream_file {key}: differs from the engine's stream")
+    plots = [m for m in client.sent if m["type"] == "plot_data"]
+    if not plots or not any("analysis" in m for m in plots):
+        raise AssertionError("backend: no plot_data with its analysis")
+    stats = next(m for m in replies if m["type"] == "stats")["engine"]
+    oks = {m["type"]: m["ok"] for m in replies
+           if m["type"] in ("session_saved", "session_resumed", "ir_set", "noise_learned")}
+    if not all(oks.values()):
+        raise AssertionError(f"backend replies not ok: {oks}")
+    audio_s = demo.shape[0] / FS
+    phase("backend_handler", wall_s=wall, launches=counts, replies=len(client.sent),
+          plot_data=len(plots), process_file_s=file_s, process_file_realtime_x=audio_s / file_s,
+          file_vs_process_offline_16bit_steps=file_steps, stream_blocks=len(items),
+          stream_messages=len(streamed), stream_equal_to_engine=True,
+          stream_p50_ms=stats.get("p50_ms"), stream_p99_ms=stats.get("p99_ms"),
+          stream_xruns=stats.get("xruns"), stats=stats, ok=oks, second_client_refused=True)
+
+
+def http_get(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.read()
+
+
+def ui_server():
+    """``ui.app.serve`` on a free port: /, /config.json and an asset over
+    HTTP; the config is ``config_payload()``, the bytes are the repository's
+    aefs_tpu/ui/assets/ files."""
+    assets = ROOT / "aefs_tpu" / "ui" / "assets"
+    if pathlib.Path(ASSETS_DIR).resolve() != assets.resolve():
+        raise AssertionError(f"the UI serves {ASSETS_DIR}, not {assets}")
+    httpd = serve(port=0, blocking=False)
+    port = httpd.server_address[1]
+    try:
+        t0 = time.perf_counter()
+        index, cfg, app_js = (http_get(port, p) for p in ("/", "/config.json", "/app.js"))
+        wall = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    if (index != (assets / "index.html").read_bytes() or app_js != (assets / "app.js").read_bytes()
+            or json.loads(cfg) != json.loads(json.dumps(config_payload()))):
+        raise AssertionError("ui server: a payload differs from its source")
+    phase("ui_server", port=port, fetch_s=wall, index_bytes=len(index), config_bytes=len(cfg),
+          asset_bytes=len(app_js))
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def alive(pid):
+    """Whether ``pid`` runs (a zombie left to a parent that does not reap
+    counts as gone)."""
+    try:
+        stat = pathlib.Path(f"/proc/{pid}/stat").read_text()
+    except OSError:
+        return False
+    return stat.rsplit(")", 1)[1].split()[0] != "Z"
+
+
+async def ws_file_round_trip(port, clip):
+    """A real websockets client: build_chain flagship, process_file of
+    ``clip``; returns the file_processed message."""
+    import websockets
+
+    for _ in range(600):
+        try:
+            async with websockets.connect(f"ws://127.0.0.1:{port}", max_size=2**29) as client:
+                await client.send(json.dumps({"command": "build_chain", "config": FLAGSHIP}))
+                await client.send(json.dumps({"command": "process_file",
+                                              "contents": data_url(clip)}))
+                while True:
+                    msg = json.loads(await asyncio.wait_for(client.recv(), 300))
+                    if msg["type"] == "file_processed":
+                        return msg
+        except OSError:
+            await asyncio.sleep(0.2)
+    raise AssertionError("launcher: the backend never accepted a connection")
+
+
+def launcher(demo, work):
+    """``python -m aefs_tpu_torch.run`` on free ports, on the card.  With
+    ``websockets`` importable, one real client's build_chain + process_file
+    round trip (the WAV within one 16-bit step of ``process_offline``);
+    without it the backend child exits at start, and the launcher must say so
+    and tear the UI down (a stated skip of the round trip).  Either way the
+    launcher is SIGTERMed if still running and both children are gone
+    within 5 s."""
+    try:
+        import websockets
+        have_ws = f"present {websockets.__version__}"
+    except ImportError:
+        have_ws = "absent"
+    print(f"websockets: {have_ws}", flush=True)
+    bport, uport = free_port(), free_port()
+    log = work / "launcher.log"
+    env = {k: v for k, v in os.environ.items() if k != "AEFS_PLATFORM"}
+    clip = demo[:LAUNCHER_CLIP_S * FS]
+    round_trip = None
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "aefs_tpu_torch.run", "--backend-port",
+                                 str(bport), "--ui-port", str(uport)],
+                                cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        if have_ws != "absent":
+            t1 = time.perf_counter()
+            msg = asyncio.run(ws_file_round_trip(bport, clip))
+            round_trip = time.perf_counter() - t1
+            if json.loads(http_get(uport, "/config.json"))["ws_port"] != bport:
+                raise AssertionError("launcher: the UI names another backend port")
+            ref = process_offline(FLAGSHIP, decode_wav(encode_wav_int16(clip, FS))[0], FS,
+                                  device="cuda")[1]
+            if wav_steps(msg, ref) > 1:
+                raise AssertionError("launcher: the backend's WAV differs from process_offline")
+        else:
+            proc.wait(timeout=120)
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = log.read_text()
+    pids = [int(p) for p in re.findall(r"\(pid (\d+)\)", text)]
+    deadline = time.monotonic() + 5
+    while any(alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if len(pids) != 2 or any(alive(p) for p in pids):
+        raise AssertionError(f"launcher: children {pids} not gone: {text[-2000:]}")
+    if have_ws == "absent" and "Service 'backend' exited" not in text:
+        raise AssertionError(f"launcher: a dead backend went unreported: {text[-2000:]}")
+    phase("launcher", websockets=have_ws, returncode=proc.returncode, children=pids,
+          children_gone=True, round_trip_s=round_trip,
+          round_trip="done" if round_trip is not None else "skipped: websockets absent",
+          wall_s=time.perf_counter() - t0, log_tail=text[-600:])
+
+
+def pool_grid(mono, generic):
+    """The flagship's grid pool (``grid=True``: the octaver's exact grid, K1
+    not launched) at 16 slots over 375 blocks, per-slot params and a release
+    plus a claim at GRID_CHANGE_AT that joins at the shared phase; every slot
+    within -120 dBFS of its grid solo chain fed the same grid_phase, 3 slots
+    x 40 blocks within -90 dBFS of the CPU grid pool; step times beside the
+    generic pool's (phase 10) at 16 slots."""
+    streams = pool_streams(mono, POOL_SLOTS, STREAM_BLOCKS)
+    pool = SessionPool(FLAGSHIP, n_slots=POOL_SLOTS, grid=True, device="cuda")
+    refusal = pool.update_param(0, "o", "semitones", 7.0)
+    if not refusal or "grid-specialized" not in refusal:
+        raise AssertionError(f"grid pool: semitones not refused ({refusal})")
+    row = next(iter(pool._phase_rows))
+    adv, mod = pool._phase_rows[row].grid_phase_advance()
+    t0 = time.perf_counter()
+    outs, counts = count_launches(
+        lambda: drive_pool(pool, streams, STREAM_BLOCKS, GRID_CHANGE_AT, GRID_SLOT_PARAMS,
+                           GRID_UPDATE),
+        exact={"octaver_step": 0})
+    wall = time.perf_counter() - t0
+    if not np.all(pool._tbuf[row] == (STREAM_BLOCKS * adv) % mod):
+        raise AssertionError("grid pool: the shared phase row is not the pool clock")
+    worst_solo, worst_cpu = -np.inf, -np.inf
+    for s in range(POOL_SLOTS):
+        params = [(eid, name, value(s)) for eid, name, value in GRID_SLOT_PARAMS]
+        got = np.concatenate([o[s] for o in outs])
+        upd = (GRID_CHANGE_AT, *GRID_UPDATE) if s == UPDATED_SLOT else None
+        span = GRID_CHANGE_AT if s == RELEASED_SLOT else STREAM_BLOCKS
+        want = solo_session("cuda", streams[s], params, span, upd, grid_phase=(0, adv, mod))
+        worst_solo = max(worst_solo, err_dbfs(got[:span * BLOCK], want))
+    joined_at = (GRID_CHANGE_AT * adv) % mod
+    new = solo_session("cuda", streams[POOL_SLOTS], [], STREAM_BLOCKS - GRID_CHANGE_AT,
+                       grid_phase=(joined_at, adv, mod))
+    worst_solo = max(worst_solo, err_dbfs(
+        np.concatenate([o[RELEASED_SLOT] for o in outs[GRID_CHANGE_AT:]]), new))
+    if not worst_solo <= -120.0:
+        raise AssertionError(f"grid pool vs solo chains: {worst_solo:.1f} dBFS > -120")
+    cpu = SessionPool(FLAGSHIP, n_slots=CPU_POOL_SLOTS, grid=True, device="cpu")
+    for s in range(CPU_POOL_SLOTS):
+        cpu.claim()
+        for eid, name, value in GRID_SLOT_PARAMS:
+            cpu.update_param(s, eid, name, value(s))
+    for b in range(CPU_POOL_BLOCKS):
+        o = cpu.step_blocks({s: streams[s][b] for s in range(CPU_POOL_SLOTS)})
+        for s in range(CPU_POOL_SLOTS):
+            worst_cpu = max(worst_cpu, err_dbfs(outs[b][s], o[s]))
+    if not worst_cpu <= DBFS_TOL:
+        raise AssertionError(f"card grid pool vs CPU grid pool: {worst_cpu:.1f} dBFS > {DBFS_TOL}")
+    timed, tpool = timed_steps(FLAGSHIP, POOL_SLOTS, mono, TIMED_STEPS, False, grid=True)
+    if timed["launches"]["octaver_step"]:
+        raise AssertionError("grid pool: K1 launched in the timed steps")
+    x = {s: streams[s][0] for s in range(POOL_SLOTS)}
+    kern, copies, busy = kernels_per_step(lambda: tpool.step_blocks(x))
+    phase("pool_grid", slots=POOL_SLOTS, blocks=STREAM_BLOCKS, wall_s=wall, launches=counts,
+          vs_solo_chain_dbfs=worst_solo, vs_cpu_pool_dbfs=worst_cpu,
+          joined_at_phase=joined_at, final_phase=int(pool._tbuf[row, 0]), kernels_per_step=kern, copies_per_step=copies,
+          device_busy_ms=busy, step_p50_ms=timed["p50_ms"], step_p99_ms=timed["p99_ms"],
+          generic_pool_step_p50_ms=generic["flagship"]["sweep"][POOL_SLOTS]["p50_ms"],
+          generic_pool_step_p99_ms=generic["flagship"]["sweep"][POOL_SLOTS]["p99_ms"],
+          deadline_ms=BUDGET_MS)
+
+
+def mesh(mono):
+    """``make_mesh`` on the card and ``ShardedStreams`` of the flagship over
+    16 streams with per-stream targets, 40 blocks: bit-equal to a
+    ``SessionPool`` given the same params, the peak meter max |y|, K1 once
+    per step."""
+    m = make_mesh()
+    if m.shape != {"data": 1, "model": 1}:
+        raise AssertionError(f"make_mesh() on one card: {m.shape}")
+    try:
+        make_mesh(2)
+    except ValueError as e:
+        too_few = str(e)
+    else:
+        raise AssertionError("make_mesh(2) did not raise on one card")
+    chain, _, tmap = build_chain(FLAGSHIP, FS, BLOCK, device="cuda")
+    runner = ShardedStreams(chain, m, POOL_SLOTS)
+    pool = SessionPool(FLAGSHIP, n_slots=POOL_SLOTS, device="cuda")
+    maps = []
+    for s in range(POOL_SLOTS):
+        mp = {k: dict(v) for k, v in tmap.items()}
+        pool.claim()
+        for eid, name, value in FLAGSHIP_SLOT_PARAMS:
+            mp[eid][name] = value(s)
+            pool.update_param(s, eid, name, value(s))
+        maps.append(mp)
+    streams = pool_streams(mono, POOL_SLOTS, MESH_BLOCKS)
+    state, _ = runner.init_state()
+    targets = runner.batch_targets(maps)
+
+    def run():
+        nonlocal state
+        outs, t0 = [], time.perf_counter()
+        for b in range(MESH_BLOCKS):
+            x = np.stack([streams[s][b] for s in range(POOL_SLOTS)])[:, None, :]
+            state, y, peak = runner.run_block(state, targets, x, per_stream_targets=True)
+            outs.append((y.cpu().numpy(), float(peak)))
+        return outs, time.perf_counter() - t0
+
+    (outs, wall), counts = count_launches(run, need=("octaver_step",), per_block=MESH_BLOCKS)
+    for b, (y, peak) in enumerate(outs):
+        want = pool.step_blocks({s: streams[s][b] for s in range(POOL_SLOTS)})
+        if not all(np.array_equal(y[s].T, want[s]) for s in range(POOL_SLOTS)):
+            raise AssertionError(f"ShardedStreams block {b}: differs from the pool")
+        if peak != float(np.max(np.abs(y))):
+            raise AssertionError(f"ShardedStreams block {b}: peak {peak} is not max |y|")
+    phase("mesh", shape=m.shape, make_mesh_2=too_few, streams=POOL_SLOTS, blocks=MESH_BLOCKS,
+          bitwise_vs_pool=True, launches=counts, step_ms_mean=1000.0 * wall / MESH_BLOCKS)
+
+
 def main():
     card, _ = probe()
     dev = torch.device("cuda")
@@ -1310,7 +1739,8 @@ def main():
     streaming("flagship", FLAGSHIP, mono, "octaver_step")
     streaming("Lush Chorus", DEFAULT_PRESETS["Lush Chorus"], mono, "chorus_step")
     for preset in ("Concert Hall (Convolution)", "Multiband Master"):
-        streaming(preset, DEFAULT_PRESETS[preset], mono)
+        streaming(preset, DEFAULT_PRESETS[preset], mono,
+                  n_blocks=MULTIBAND_BLOCKS if preset == "Multiband Master" else STREAM_BLOCKS)
 
     # The session layer and the CLI's batch and resumable modes.
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1340,8 +1770,22 @@ def main():
                      ("pool_timing", lambda: pool_timing(mono)),
                      ("pool_multipool", lambda: pool_multi(mono)),
                      ("pool_server", lambda: pool_server(mono))):
-        _, walls[step] = timed_phase(fn)
+        out, walls[step] = timed_phase(fn)
+        if step == "pool_timing":
+            generic = out
     phase("pool_walls", seconds=walls, total_s=sum(walls.values()))
+
+    # Phase 11: the serving front, as users start it.
+    WORK.mkdir(parents=True)
+    walls = {}
+    for step, fn in (("backend_handler", lambda: backend_handler(demo, mono, WORK)),
+                     ("ui_server", ui_server),
+                     ("launcher", lambda: launcher(demo, WORK)),
+                     ("pool_grid", lambda: pool_grid(mono, generic)),
+                     ("mesh", lambda: mesh(mono))):
+        _, walls[step] = timed_phase(fn)
+    phase("serving_walls", seconds=walls, total_s=sum(walls.values()))
+    shutil.rmtree(WORK, ignore_errors=True)
 
     print(json.dumps({"kernels": [
         {"name": "octaver_step", "route": "cuda", "source": "aefs_tpu_torch/csrc/resample.cu",

@@ -1,6 +1,7 @@
 """Where the PyTorch port's time goes on one CUDA card.
 
-    python3 scripts/profile_port.py [--preset NAME] [--blocks 40] [--pool S] [--out OUT.json]
+    python3 scripts/profile_port.py [--preset NAME] [--blocks 40] [--pool S [--grid]]
+                                    [--out OUT.json]
 
 Profiles the flagship chain (``aefs_tpu_torch.engine.flagship``), or the factory
 preset ``--preset`` names, of ``aefs_tpu_torch`` two ways, on the card,
@@ -12,7 +13,9 @@ under ``torch.profiler``:
   first, then one profiled render);
 - with ``--pool S``: ``SessionPool.step_blocks`` of a pool of S slots
   (aefs_tpu_torch/server/pool.py), every slot streaming its own part of
-  the demo, one synchronous pool step per profiled step.
+  the demo, one synchronous pool step per profiled step; ``--grid`` makes
+  it the grid pool (``SessionPool(grid=True)``: a whole-octave octaver on
+  its exact integer grid instead of the K1 step).
 
 For the profiled runs only, each effect's ``process`` / ``process_file``
 is wrapped in a ``record_function`` span named after its kind; the package
@@ -180,10 +183,10 @@ def streaming(cfg, mono, n_blocks):
     return summarize(prof, n_blocks, wall)
 
 
-def pool_steps(cfg, mono, n_blocks, slots):
+def pool_steps(cfg, mono, n_blocks, slots, grid):
     from aefs_tpu_torch.server.pool import SessionPool
 
-    pool = SessionPool(cfg, n_slots=slots, device="cuda")
+    pool = SessionPool(cfg, n_slots=slots, device="cuda", grid=grid)
     x = mono[:, 0]
     steps = [{s: x[(b * slots + s) * BLOCK % (x.shape[0] - BLOCK):][:BLOCK]
               for s in range(slots)} for b in range(3 * n_blocks)]
@@ -220,6 +223,7 @@ def main(argv=None):
     ap.add_argument("--blocks", type=int, default=40, help="profiled streaming blocks")
     ap.add_argument("--pool", type=int, default=0, metavar="S",
                     help="also profile the steps of a pool of S slots")
+    ap.add_argument("--grid", action="store_true", help="make that pool a grid pool")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile_port.json"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -238,7 +242,8 @@ def main(argv=None):
         "file_mode": file_mode(cfg, demo, fs),
     }
     if args.pool:
-        result["pool"] = {"slots": args.pool, **pool_steps(cfg, mono, args.blocks, args.pool)}
+        result["pool"] = {"slots": args.pool, "grid": args.grid,
+                          **pool_steps(cfg, mono, args.blocks, args.pool, args.grid)}
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))

@@ -203,10 +203,17 @@ def test_remainder_matches_jnp_mod_bitwise():
 
 
 def test_grid_semitones_not_ported():
+    """``grid_semitones`` in a chain config (once refused) now builds the
+    exact-grid streaming octaver, as JAX's does: the integer-phase state
+    and outputs within -90 dBFS of JAX's over 8 blocks
+    (tests/test_torch_grid.py holds the path in full)."""
     cfg = [{"effect_id": "o", "type": "octaver", "params": {"semitones": -12},
             "grid_semitones": -12}]
-    with pytest.raises(NotImplementedError, match="grid_semitones"):
-        build_chain(cfg, FS, N, device="cpu")
+    x = tones(8 * N, channels=1)
+    out, st, jout, jst = run_both(cfg, x, N, fast=False)
+    assert set(st["fx"][0]) == {"hist", "num"}
+    assert err_dbfs(out, jout) <= -90, err_dbfs(out, jout)
+    assert_states_close(st, jst)
 
 
 def test_gridtaps_geometry_matches_jax():

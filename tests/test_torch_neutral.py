@@ -48,10 +48,28 @@ def test_no_jax_import(rel):
     "aefs_tpu_torch/engine/checkpoint.py", "aefs_tpu_torch/engine/devices.py",
     "aefs_tpu_torch/utils/analysis.py", "aefs_tpu_torch/utils/metrics.py",
     "aefs_tpu_torch/utils/platform.py", "aefs_tpu_torch/utils/tempo.py",
-    "aefs_tpu_torch/server/__init__.py", "aefs_tpu_torch/server/pool.py"])
+    "aefs_tpu_torch/server/__init__.py", "aefs_tpu_torch/server/pool.py",
+    "aefs_tpu_torch/server/backend.py", "aefs_tpu_torch/ui/__init__.py",
+    "aefs_tpu_torch/ui/app.py", "aefs_tpu_torch/run.py",
+    "aefs_tpu_torch/parallel/__init__.py", "aefs_tpu_torch/parallel/mesh.py"])
 def test_scan_covers_session_layer_modules(rel):
     """The import scan above walks every module of the port, these too."""
     assert rel in PORT_FILES
+
+
+def test_ui_assets_served_by_path_not_copied():
+    """The port's UI server serves the repository's aefs_tpu/ui/assets/ by
+    path; no asset file (by name or by content) lives under the port."""
+    from aefs_tpu_torch.ui.app import ASSETS_DIR
+
+    assets = ROOT / "aefs_tpu" / "ui" / "assets"
+    assert pathlib.Path(ASSETS_DIR).resolve() == assets.resolve()
+    originals = {f.name: f.read_bytes() for f in assets.iterdir()}
+    assert originals
+    for f in PORT.rglob("*"):
+        if f.is_file():
+            assert f.name not in originals, f
+            assert f.read_bytes() not in originals.values(), f
 
 
 def test_flagship_copy_matches_driver_entry():

@@ -264,11 +264,13 @@ def test_multiband_master_pool_vs_oracle():
 
 
 def test_pool_grid_and_shard_options():
-    """grid=True (exact-grid octaver serving) is not ported and raises;
-    shard=True on one device is what JAX does there: nothing."""
+    """grid=True bakes the whole-octave octaver for exact-grid serving (its
+    semitones stop being live; tests/test_torch_grid.py holds the mode in
+    full); shard=True on one device is what JAX does there: nothing."""
     cfg = [{"effect_id": "o", "type": "octaver", "params": {"semitones": -12, "mix": 0.9}}]
-    with pytest.raises(NotImplementedError, match="grid"):
-        SessionPool(cfg, n_slots=2, grid=True, device="cpu")
+    grid = SessionPool(cfg, n_slots=2, grid=True, device="cpu")
+    assert grid.grid and dict(grid.chain.effects)["o"]._grid_e == -1
+    assert "grid-specialized" in grid.update_param(0, "o", "semitones", -7)
     pa = SessionPool(cfg, n_slots=2, device="cpu")
     pb = SessionPool(cfg, n_slots=2, shard=True, device="cpu")
     blk = _tone(N, 440)
@@ -276,13 +278,33 @@ def test_pool_grid_and_shard_options():
         np.testing.assert_array_equal(pa.step_blocks({0: blk})[0], pb.step_blocks({0: blk})[0])
 
 
-def test_pool_server_main_refuses_grid_before_serving():
+def test_pool_server_main_refuses_grid_before_serving(monkeypatch, tmp_path):
     """``python -m aefs_tpu_torch.server.pool --grid`` parses its options,
-    picks the device and raises while building the default bucket."""
-    from aefs_tpu_torch.server.pool import main
+    picks the device and builds a grid default bucket before it serves
+    (the serve call is stubbed to stop there)."""
+    import aefs_tpu_torch.server.pool as pool_mod
 
-    with pytest.raises(NotImplementedError, match="grid"):
-        asyncio.run(main(["--device", "cpu", "--grid", "--slots", "2", "--port", "0"]))
+    cfg_path = tmp_path / "octaver.json"
+    cfg_path.write_text(json.dumps(
+        [{"effect_id": "o", "type": "octaver", "params": {"semitones": -12, "mix": 0.9}}]))
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    class FakeWs:
+        @staticmethod
+        def serve(handler, host, port, max_size):
+            seen["server"] = handler.__self__
+            raise Stop
+
+    monkeypatch.setattr(pool_mod, "ws", FakeWs)
+    with pytest.raises(Stop):
+        asyncio.run(pool_mod.main(["--device", "cpu", "--grid", "--slots", "2", "--port", "0",
+                                   "--config", str(cfg_path)]))
+    multi = seen["server"].multi
+    assert multi.grid and multi.default_pool.grid and multi.default_pool._phase_rows
 
 
 def test_pool_defaults_to_the_card():
