@@ -126,7 +126,9 @@ class Chain:
     def process_whole(self, state, targets, x):
         """Whole-signal pass routed through each effect's ``process_file``
         fast path: one parameter-smoothing step, then every effect
-        transforms the entire signal in closed form.  Needs fresh state."""
+        transforms the entire signal in closed form.  Needs fresh state.
+        x (ci, N), or (F, ci, N) for F files with ``batch_state``'s fx and
+        0-dim params (``render_batch``)."""
         return self._process(state, targets, x, "process_file")
 
     def process_array(self, state, targets, audio, fast: bool = False):

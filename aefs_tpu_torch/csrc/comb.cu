@@ -1,4 +1,4 @@
-// Kernels K2 and K4: the whole-file damped comb bank, one block per comb.
+// Kernels K2 and K4: the whole-file damped comb bank, one block per comb and file.
 //
 // K2 (aefs_comb_sums) replaces the TPU kernel
 // aefs_tpu/ops/pallas/comb.py:_make_sums_kernel (entered through
@@ -67,6 +67,13 @@
 //      lane C-1 of chunk k-1.  All powers of h come from multiplications
 //      in a fixed order, so the result is deterministic.
 //
+// A batched render's files share g and h and differ in x: the grid is
+// (combs, files), block (b, f) running comb b of file f with its x, y,
+// damped and tail rows offset by f, so one launch serves F files and each
+// file's blocks do exactly the arithmetic of an F = 1 launch (bit-equal
+// outputs).  At the demo's length a file is 8 blocks of ~22 warps on a
+// 132-SM card, so up to 16 files run side by side in the time of one.
+//
 // Built with -fmad=false like the tap kernel, so every product rounds as
 // in the plain version's separate eager ops.
 
@@ -107,19 +114,22 @@ __device__ __forceinline__ void sts(float* p, const float* in) {
   *reinterpret_cast<typename Vec<W>::T*>(p) = v;
 }
 
-// One block per comb; blockDim.x * V >= c.  y_out (m, b, c) always;
-// d_out (m, b, c) and d_tail (3, b, c) may be null.
+// One block per comb and file; blockDim.x * V >= c.  Per file (x_file
+// floats of x apart): y_out (m, b, c) always; d_out (m, b, c) and d_tail
+// (3, b, c) may be null.  Block (b, f) offsets every operand by file f.
 template <int V, int MAXT>
 __global__ void __launch_bounds__(MAXT)
-comb_bank_kernel(const float* __restrict__ x, int n, const float* __restrict__ g,
-                 const float* __restrict__ hptr, const CombGeom geom, int c, int m,
-                 float* __restrict__ y_out, float* __restrict__ d_out,
-                 float* __restrict__ d_tail) {
+comb_bank_kernel(const float* __restrict__ x, long long x_file, int n,
+                 const float* __restrict__ g, const float* __restrict__ hptr,
+                 const CombGeom geom, int c, int m, float* __restrict__ y_out,
+                 float* __restrict__ d_out, float* __restrict__ d_tail) {
   constexpr int PAD = AEFS_FIR_PAD;
   constexpr int W = V < 4 ? V : 4;
   extern __shared__ __align__(16) float sm[];
 
   const int b = blockIdx.x;
+  const size_t f = blockIdx.y;  // the file: its rows of every operand
+  const size_t fo = f * m * geom.b * c;  // its y / damped chunks' offset
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lane = tid & 31;
@@ -132,7 +142,11 @@ comb_bank_kernel(const float* __restrict__ x, int n, const float* __restrict__ g
   const int i0 = tid * V;       // this thread's first lane
 
   const int lag = geom.lags[b];
-  const float* xs = x + (size_t)geom.side_of[b] * n;
+  const float* xs = x + f * x_file + (size_t)geom.side_of[b] * n;
+  // Pin the file's x row in a register: left to itself the compiler
+  // re-derives it from the kernel parameters at every prefetch, inside the
+  // chunk loop, which slowed an F = 1 launch by 10-20% on an H100.
+  asm volatile("" : "+l"(xs));
   const float gb = g[b];
   const float h = *hptr;
   const int n_taps = geom.n_taps;
@@ -140,7 +154,7 @@ comb_bank_kernel(const float* __restrict__ x, int n, const float* __restrict__ g
   for (int i = tid; i < 2 * ys + 2 * c; i += nt) sm[i] = 0.f;
   if (tid < PAD) fir_w[tid] = geom.fir_w[tid];
   for (int r = 0; d_tail && r < 3 - m; ++r)
-    for (int i = tid; i < c; i += nt) d_tail[((size_t)r * geom.b + b) * c + i] = 0.f;
+    for (int i = tid; i < c; i += nt) d_tail[((f * 3 + r) * geom.b + b) * c + i] = 0.f;
   __syncthreads();
 
   // The scan's powers of h, each by repeated multiplication in one order:
@@ -171,9 +185,9 @@ comb_bank_kernel(const float* __restrict__ x, int n, const float* __restrict__ g
     const float* yk = ybuf + (k & 1) * ys + PAD;
     const float* dk = dh + (k & 1) * c;
     const int r = k - (m - 3);
-    float* yo = y_out + ((size_t)k * geom.b + b) * c;
-    float* dout = d_out ? d_out + ((size_t)k * geom.b + b) * c : nullptr;
-    float* dt = (d_tail && r >= 0) ? d_tail + ((size_t)r * geom.b + b) * c : nullptr;
+    float* yo = y_out + fo + ((size_t)k * geom.b + b) * c;
+    float* dout = d_out ? d_out + fo + ((size_t)k * geom.b + b) * c : nullptr;
+    float* dt = (d_tail && r >= 0) ? d_tail + ((f * 3 + r) * geom.b + b) * c : nullptr;
     for (int i = tid; i < c; i += nt) {
       yo[i] = yk[i];
       if (dout) dout[i] = dk[i];
@@ -280,20 +294,24 @@ comb_bank_kernel(const float* __restrict__ x, int n, const float* __restrict__ g
   store_chunk(m - 1);
 }
 
-// ysum[s, k, i] = 0 + y[k, b0, i] + y[k, b1, i] + ... over side s's combs
-// b0 < b1 < ... (zeros for a side with none); one thread per output.
+// ysum[f, s, k, i] = 0 + y[f, k, b0, i] + y[f, k, b1, i] + ... over side
+// s's combs b0 < b1 < ... (zeros for a side with none); one thread per
+// output, striding over every file's outputs.
 __global__ void comb_side_sums_kernel(const float* __restrict__ y, const CombGeom geom,
-                                      int c, int m, int n_sides,
+                                      int c, int m, int n_sides, int files,
                                       float* __restrict__ ysum) {
   const long long mc = (long long)m * c;
-  const long long total = n_sides * mc;
+  const long long per_file = n_sides * mc;
+  const long long total = files * per_file;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < total;
        t += (long long)gridDim.x * blockDim.x) {
-    const int s = (int)(t / mc);
-    const long long ki = t - s * mc;  // k * c + i
+    const long long f = t / per_file;
+    const long long st = t - f * per_file;  // s * m * c + k * c + i
+    const int s = (int)(st / mc);
+    const long long ki = st - s * mc;  // k * c + i
     const long long k = ki / c;
     const long long i = ki - k * c;
-    const float* yk = y + k * geom.b * c + i;
+    const float* yk = y + (f * m + k) * geom.b * c + i;
     float acc = 0.f;
     for (int bb = 0; bb < geom.b; ++bb)
       if (geom.side_of[bb] == s) acc = acc + yk[(long long)bb * c];
@@ -305,9 +323,9 @@ __global__ void comb_side_sums_kernel(const float* __restrict__ y, const CombGeo
 int threads_for(int c, int v) { return ((c + v - 1) / v + 31) / 32 * 32; }
 
 template <int V, int MAXT>
-int launch_bank(cudaStream_t stream, const float* x, int n, const float* g,
-                const float* h, const CombGeom& geom, int c, int m, float* y_out,
-                float* d_out, float* d_tail) {
+int launch_bank(cudaStream_t stream, const float* x, long long x_file, int n, int files,
+                const float* g, const float* h, const CombGeom& geom, int c, int m,
+                float* y_out, float* d_out, float* d_tail) {
   const int threads = threads_for(c, V);
   const size_t smem = sizeof(float) * (2 * ((size_t)AEFS_FIR_PAD + (size_t)threads * V) +
                                        2 * (size_t)c + 32 + AEFS_FIR_PAD);
@@ -317,28 +335,29 @@ int launch_bank(cudaStream_t stream, const float* x, int n, const float* g,
     cudaGetLastError();  // not sticky: clear it, or the next launch's check reports it
     return (int)err;
   }
-  comb_bank_kernel<V, MAXT><<<geom.b, threads, smem, stream>>>(
-      x, n, g, h, geom, c, m, y_out, d_out, d_tail);
+  comb_bank_kernel<V, MAXT><<<dim3(geom.b, files), threads, smem, stream>>>(
+      x, x_file, n, g, h, geom, c, m, y_out, d_out, d_tail);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Shared launcher: validates the geometry, packs it (and the FIR weights)
-// into the by-value struct and launches one block per comb.  It owns the
+// into the by-value struct and launches one block per comb and file.  It owns the
 // launch geometry: 2 lanes per thread where the chunk fits in 768 threads
 // (C <= 1536), else the fewest of 4, 8, 16, 32 that fit in 512, each
 // variant compiled for its thread limit.  A chunk no variant takes
 // (C > 16,384) or whose shared memory exceeds the card's per-block limit
 // (cudaFuncSetAttribute refuses it: C > 14,336 on the H100) returns the
 // error.
-static int launch_comb(const float* x, int x_rows, int n, const float* g,
+static int launch_comb(const float* x, int x_rows, int n, int files, const float* g,
                        const float* h, const float* fir_w, int n_taps,
                        const int* lags, const int* side_of, int b, int c, int m,
                        float* y_out, float* d_out, float* d_tail, cudaStream_t stream) {
   if (b < 1 || b > AEFS_MAX_COMBS || n_taps < 0 || n_taps > AEFS_FIR_PAD || c < 1 ||
-      m < 1 || y_out == nullptr)
+      m < 1 || files < 1 || files > 65535 || y_out == nullptr)
     return (int)cudaErrorInvalidValue;
+  const long long x_file = (long long)x_rows * n;
   CombGeom geom = {};
   geom.b = b;
   geom.n_taps = n_taps;
@@ -351,53 +370,59 @@ static int launch_comb(const float* x, int x_rows, int n, const float* g,
     if (side_of[i] < 0 || side_of[i] >= x_rows || lags[i] < c || lags[i] >= 2 * c)
       return (int)cudaErrorInvalidValue;
   if (threads_for(c, 2) <= 768)
-    return launch_bank<2, 768>(stream, x, n, g, h, geom, c, m, y_out, d_out, d_tail);
+    return launch_bank<2, 768>(stream, x, x_file, n, files, g, h, geom, c, m, y_out,
+                                  d_out, d_tail);
   if (threads_for(c, 4) <= 512)
-    return launch_bank<4, 512>(stream, x, n, g, h, geom, c, m, y_out, d_out, d_tail);
+    return launch_bank<4, 512>(stream, x, x_file, n, files, g, h, geom, c, m, y_out,
+                                  d_out, d_tail);
   if (threads_for(c, 8) <= 512)
-    return launch_bank<8, 512>(stream, x, n, g, h, geom, c, m, y_out, d_out, d_tail);
+    return launch_bank<8, 512>(stream, x, x_file, n, files, g, h, geom, c, m, y_out,
+                                  d_out, d_tail);
   if (threads_for(c, 16) <= 512)
-    return launch_bank<16, 512>(stream, x, n, g, h, geom, c, m, y_out, d_out, d_tail);
+    return launch_bank<16, 512>(stream, x, x_file, n, files, g, h, geom, c, m, y_out,
+                                  d_out, d_tail);
   if (threads_for(c, 32) <= 512)
-    return launch_bank<32, 512>(stream, x, n, g, h, geom, c, m, y_out, d_out, d_tail);
+    return launch_bank<32, 512>(stream, x, x_file, n, files, g, h, geom, c, m, y_out,
+                                  d_out, d_tail);
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel K2.  x (x_rows, n) float32, g (b,), h scalar: device pointers.
-// fir_w (n_taps,) HOST floats, n_taps <= 32; n_taps == 0 selects the scan
-// (fir_w may then be null).  lags/side_of (b,) HOST ints.  y_scratch
-// (m, b, c), ysum (n_sides, m, c), d_tail (3, b, c): device outputs.
+// Kernel K2.  x (files, x_rows, n) float32, g (b,), h scalar: device
+// pointers.  fir_w (n_taps,) HOST floats, n_taps <= 32; n_taps == 0 selects
+// the scan (fir_w may then be null).  lags/side_of (b,) HOST ints.
+// y_scratch (files, m, b, c), ysum (files, n_sides, m, c), d_tail
+// (files, 3, b, c): device outputs.
 // Launches the comb kernel, then the side sums; returns the first
 // launch error (cudaGetLastError()), or cudaErrorInvalidValue for a
 // geometry it does not take.
-extern "C" int aefs_comb_sums(const float* x, int x_rows, int n, const float* g,
-                              const float* h, const float* fir_w, int n_taps,
-                              const int* lags, const int* side_of, int b, int c,
-                              int m, int n_sides, float* y_scratch, float* ysum,
+extern "C" int aefs_comb_sums(const float* x, int x_rows, int n, int files,
+                              const float* g, const float* h, const float* fir_w,
+                              int n_taps, const int* lags, const int* side_of, int b,
+                              int c, int m, int n_sides, float* y_scratch, float* ysum,
                               float* d_tail, cudaStream_t stream) {
   if (n_sides < 1) return (int)cudaErrorInvalidValue;
-  int err = launch_comb(x, x_rows, n, g, h, fir_w, n_taps, lags, side_of, b, c, m,
+  int err = launch_comb(x, x_rows, n, files, g, h, fir_w, n_taps, lags, side_of, b, c, m,
                         y_scratch, nullptr, d_tail, stream);
   if (err != 0) return err;
   CombGeom geom = {};
   geom.b = b;
   for (int i = 0; i < b; ++i) geom.side_of[i] = side_of[i];
-  const long long total = (long long)n_sides * m * c;
+  const long long total = (long long)files * n_sides * m * c;
   const int threads = 256;
   const long long want = (total + threads - 1) / threads;
   const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
   comb_side_sums_kernel<<<blocks, threads, 0, stream>>>(y_scratch, geom, c, m, n_sides,
-                                                        ysum);
+                                                        files, ysum);
   return (int)cudaGetLastError();
 }
 
 // Kernel K4.  Same operands as aefs_comb_sums with traced h only (the
-// scan); y_out and d_out (m, b, c) device outputs receive every comb's y
-// and damped chunk.
-extern "C" int aefs_comb_chunks(const float* x, int x_rows, int n, const float* g,
-                                const float* h, const int* lags, const int* side_of,
-                                int b, int c, int m, float* y_out, float* d_out,
-                                cudaStream_t stream) {
-  return launch_comb(x, x_rows, n, g, h, nullptr, 0, lags, side_of, b, c, m, y_out,
+// scan); y_out and d_out (files, m, b, c) device outputs receive every
+// comb's y and damped chunk.
+extern "C" int aefs_comb_chunks(const float* x, int x_rows, int n, int files,
+                                const float* g, const float* h, const int* lags,
+                                const int* side_of, int b, int c, int m, float* y_out,
+                                float* d_out, cudaStream_t stream) {
+  return launch_comb(x, x_rows, n, files, g, h, nullptr, 0, lags, side_of, b, c, m, y_out,
                      d_out, nullptr, stream);
 }

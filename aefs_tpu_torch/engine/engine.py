@@ -80,16 +80,20 @@ def process_offline(chain_config, audio, fs, superblock=FILE_SUPERBLOCK,
 
 def render_batch(chain_config, audios, fs, superblock=FILE_SUPERBLOCK,
                  shard: bool = False, device="cuda"):
-    """Offline rendering of many files through one chain topology, with the
-    JAX package's contract (engine.py:77-155): mono downmix, every file
-    zero-padded to the longest rounded up to the superblock, file statics,
-    a fresh state per file, each output clipped and trimmed to its file's
-    length.
+    """Offline rendering of many files through one chain topology in ONE
+    batched whole-file pass, with the JAX package's contract
+    (engine.py:77-155): mono downmix, every file zero-padded to the longest
+    rounded up to the superblock, file statics, a fresh state per file,
+    each output clipped and trimmed to its file's length.
 
-    The chain is built once; each file then runs ``process_whole`` from its
-    own ``chain.init_state()``, one after another on the device.
-    ``shard=True`` with one visible card renders exactly as
-    ``shard=False`` (as JAX does on one device); the port's mesh
+    The files go down a leading file axis: x (F, 1, Lp), every effect's
+    state batched over F (``Chain.batch_state``; the lockstep counters stay
+    shared), and one ``chain.process_whole`` call renders them all, so F
+    files cost the kernel launches of one (K2 once, with a file grid).
+    The params stay 0-dim and shared: every file has the same targets and
+    fresh state, so their smoothed values are the same (JAX batches them
+    too, with equal values).  ``shard=True`` with one visible card renders
+    exactly as ``shard=False`` (as JAX does on one device); the port's mesh
     (``parallel/mesh.py``) covers one card, so several cards raise.
 
     audios: list of (frames_i,) or (frames_i, ch) arrays, one sample rate.
@@ -106,23 +110,21 @@ def render_batch(chain_config, audios, fs, superblock=FILE_SUPERBLOCK,
         monos.append(a.mean(axis=1) if a.ndim > 1 else a)
     length = max(m.shape[0] for m in monos)
     lp = -(-length // superblock) * superblock
+    x = np.zeros((len(monos), 1, lp), np.float32)
+    for i, m in enumerate(monos):
+        x[i, 0, : m.shape[0]] = m
 
-    chain, _, targets_map = build_chain(
+    chain, one, targets_map = build_chain(
         chain_config, fs, superblock, channels_in=1, channels_out=2,
         static_overrides=file_static_overrides(chain_config), device=device,
     )
-    targets = chain.targets(targets_map)
-    ys = []
-    for m in monos:
-        x = np.zeros((1, lp), np.float32)
-        x[0, : m.shape[0]] = m
-        _, y = chain.process_whole(chain.init_state(), targets,
-                                   torch.from_numpy(x).to(device))
-        ys.append(y)
-    return [
-        np.clip(y.cpu().numpy()[:, : m.shape[0]], -1.0, 1.0).T.copy()
-        for y, m in zip(ys, monos)
-    ]
+    state = {"fx": chain.batch_state(one, len(monos))["fx"], "params": one["params"]}
+    _, y = chain.process_whole(state, chain.targets(targets_map),
+                               torch.from_numpy(x).to(device))
+    # Read back file by file: a (2, Lp) buffer is reused by the host's
+    # allocator, where one (F, 2, Lp) array is fresh pages every call.
+    return [np.clip(y[i].cpu().numpy()[:, : m.shape[0]], -1.0, 1.0).T.copy()
+            for i, m in enumerate(monos)]
 
 
 class _Pipeline:

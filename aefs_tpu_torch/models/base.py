@@ -16,7 +16,8 @@ written out (JAX vmaps the same step): x (S, C, N), params (S,), and every
 state leaf (S, ...) except the LOCKSTEP_STATE leaves, which stay shared.
 ``lead`` gives a param the trailing unit axes it needs to meet a signal;
 a 0-dim value passes unchanged, so the single-stream step runs exactly the
-ops it ran before.
+ops it ran before.  A batched file render (``process_file``) uses the same
+leading axis for its files with 0-dim params.
 """
 
 from __future__ import annotations
@@ -101,6 +102,8 @@ class EffectModel:
     def process_file(self, state, p, x):
         """Whole-signal transform for the file-mode fast path: one call over
         the entire (padded) signal with constant params and fresh state.
-        Defaults to ``process``; effects whose blockwise cost scales with
-        N/lag override it with a closed-form whole-file algorithm."""
+        Also takes a batched render's leading file axis: x (F, C, N) and
+        (F, ...) state with the 0-dim params every file shares.  Defaults
+        to ``process``; effects whose blockwise cost scales with N/lag
+        override it with a closed-form whole-file algorithm."""
         return self.process(state, p, x)

@@ -61,8 +61,9 @@ class Compressor(EffectModel):
         rho = lead(1.0 - self._coeff(p["release_ms"]))  # release multiplier
 
         level = torch.amax(torch.abs(x), -2)  # stereo-linked peak
-        # The two-level long scans are single-stream (file mode).
-        long = x.dim() == 2 and x.shape[-1] >= 4096
+        # Whole files (one, or a batch on a leading axis) take the
+        # two-level long scans; blocks the full-length Hillis.
+        long = x.shape[-1] >= 4096
         peak = (maxtimes_scan_long if long else maxtimes_hillis)(rho, level,
                                                                  lead(state["peak"]))
         env = (affine_scan_long if long else affine_hillis)(1.0 - att, att * peak,

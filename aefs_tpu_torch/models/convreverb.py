@@ -86,10 +86,12 @@ class ConvReverb(EffectModel):
 
     def process_file(self, state, p, x):
         """One length-nfft FFT convolution, nfft = next_pow2(N + L), with the
-        IR spectrum computed host-side in float64 and rounded to complex64.
-        The carried state is rebuilt exactly (in_tail = the last hop; the
-        spectra of the last P-1 overlap-save frames of the zero-extended
-        input), so blockwise processing resumes seamlessly."""
+        IR spectrum computed host-side in float64 and rounded to complex64,
+        once per call (a batched render's files share it).  The carried
+        state is rebuilt exactly (in_tail = the last hop; the spectra of the
+        last P-1 overlap-save frames of the zero-extended input), so
+        blockwise processing resumes seamlessly.  x: (C, N), or (F, C, N)
+        for F files."""
         n = x.shape[-1]
         hop = self.hop
         if n % hop != 0 or n < hop:
@@ -97,16 +99,16 @@ class ConvReverb(EffectModel):
         nfft = 1 << int(np.ceil(np.log2(n + self._ir_time.shape[1])))
         h_spec = np.fft.fft(self._ir_time.astype(np.float64), nfft).astype(np.complex64)
         xs = torch.fft.fft(x, nfft)
-        wet = torch.fft.ifft(xs * torch.from_numpy(h_spec).to(x.device)).real[:, :n]
+        wet = torch.fft.ifft(xs * torch.from_numpy(h_spec).to(x.device)).real[..., :n]
 
         pparts = self.partitions
         if pparts > 1:
             # The last P*hop samples, zero history before the signal start;
             # frame i covers [i*hop, (i+2)*hop) of them, chronological.
-            seg = F.pad(x[:, -pparts * hop:], (max(pparts * hop - n, 0), 0))
-            fs_c = rfft_last(seg.unfold(-1, 2 * hop, hop))  # (C, P-1, hop+1)
-            spec_hist = torch.stack([fs_c.real, fs_c.imag], 1)
+            seg = F.pad(x[..., -pparts * hop:], (max(pparts * hop - n, 0), 0))
+            fs_c = rfft_last(seg.unfold(-1, 2 * hop, hop))  # (..., C, P-1, hop+1)
+            spec_hist = torch.stack([fs_c.real, fs_c.imag], -3)
         else:
             # The IR fits in one hop: the delay line is empty.
-            spec_hist = torch.zeros((x.shape[0], 2, 0, hop + 1), device=x.device)
-        return {"spec_hist": spec_hist, "in_tail": x[:, -hop:]}, self._mix(p, x, wet)
+            spec_hist = torch.zeros(x.shape[:-1] + (2, 0, hop + 1), device=x.device)
+        return {"spec_hist": spec_hist, "in_tail": x[..., -hop:]}, self._mix(p, x, wet)

@@ -88,7 +88,8 @@ class StereoDelay(EffectModel):
     def process_file(self, state, p, x):
         """Whole-file path: with static lags the echo is the lag-affine
         recurrence y[n] = x[n-d] + fb*y[n-d], one residue-class scan per
-        side.  Requires fresh line state and the engine-baked delays."""
+        side.  Requires fresh line state and the engine-baked delays.
+        x: (2, N), or (F, 2, N) for F files."""
         if self.file_lags is None:
             k = -(-x.shape[-1] // self.min_delay)
             if k > 64:
@@ -101,26 +102,30 @@ class StereoDelay(EffectModel):
             return self.process(state, p, x)
         fb = p["feedback"]
         n = x.shape[-1]
+        files = x.shape[:-2]  # a batched render's file axis, if any
         wets, writes = [], []
         for side, lag in enumerate(self.file_lags):
+            xs = x[..., side, :]
             if lag < n:
-                base = torch.cat([torch.zeros((lag,), device=x.device), x[side, : n - lag]])
+                base = torch.cat([torch.zeros(files + (lag,), device=x.device),
+                                  xs[..., : n - lag]], -1)
             else:
-                base = torch.zeros((n,), device=x.device)
+                base = torch.zeros(files + (n,), device=x.device)
             y = lag_affine_scan(base, fb, lag)
             wets.append(y)
-            writes.append(x[side] + fb * y)
-        wet = torch.stack(wets)
-        w = torch.stack(writes)
+            writes.append(xs + fb * y)
+        wet = torch.stack(wets, -2)
+        w = torch.stack(writes, -2)
         # Rebuild the block-row ring for the final state: the slot of
         # absolute block b is b mod R; the last R blocks land rolled.
         if n % self.blocksize:
             raise ValueError("file fast path requires blocksize-padded input")
         nb = n // self.blocksize
         r = rowring_rows(self.size, self.blocksize)
-        wpad = torch.cat([torch.zeros((2, r * self.blocksize), device=x.device), w], -1)
-        wpad = wpad[:, -r * self.blocksize :].reshape(2, r, self.blocksize)
-        lines = torch.roll(wpad, (nb - r) % r, dims=1)
+        wpad = torch.cat([torch.zeros(files + (2, r * self.blocksize), device=x.device), w], -1)
+        wpad = wpad[..., -r * self.blocksize :].reshape(*files, 2, r, self.blocksize)
+        lines = torch.roll(wpad, (nb - r) % r, dims=-2)
         y = torch.clamp(p["mix_dry"] * x + p["mix_wet"] * wet, -1.0, 1.0)
+        # The row is shared by every file (LOCKSTEP_STATE): nb is the same.
         row = torch.tensor(nb % r, dtype=torch.int32, device=x.device)
         return {"lines": lines, "row": row}, y

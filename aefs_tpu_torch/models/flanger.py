@@ -150,8 +150,10 @@ class Flanger(EffectModel):
         every tap position; the in-chunk quarter C is squared (C2, C4) so the
         exact solve (I - fb*C)^-1 = (I + fb C)(I + fb^2 C2)(I + fb^4 C4 +
         fb^8 C4^2), valid since C^12 = 0, takes 4 dependent matvecs per
-        chunk instead of 12."""
-        c, n = x.shape
+        chunk instead of 12.  x: (C, N), or (F, C, N) for F files with
+        (F, ...) state: the chunk loop then runs once for all of them."""
+        files = x.shape[:-2]
+        c, n = x.shape[-2:]
         dev = x.device
         fs = fs_tensor(self.fs, dev)
         dph = p["rate_hz"] / fs
@@ -168,26 +170,26 @@ class Flanger(EffectModel):
         # Every chunk's start phase from the parallel ramp; in-chunk phase
         # is the same hi + (lo + idx*dph) as the blockwise step.
         gi = torch.arange(m, dtype=torch.float32, device=dev) * float(K)
-        chi, clo = _ds_phase(gi, dph, state["ph_hi"], state["ph_lo"])
+        chi, clo = _ds_phase(gi, dph, lead(state["ph_hi"]), lead(state["ph_lo"]))
         idx = torch.arange(K, dtype=torch.float32, device=dev)
-        ph = chi[:, None] + (clo[:, None] + idx[None, :] * dph)  # (m, K)
+        ph = chi[..., None] + (clo[..., None] + idx * dph)  # (..., m, K)
         chan = torch.arange(c, dtype=torch.float32, device=dev)
-        ph_c = ph[:, None, :] + p["spread"] * chan[None, :, None]
-        d = self._delay(p, ph_c, fs)  # (m, C, K)
+        ph_c = ph[..., None, :] + p["spread"] * chan[:, None]
+        d = self._delay(p, ph_c, fs)  # (..., m, C, K)
         ca = torch.ceil(d).to(torch.int32)
         fr = torch.ceil(d) - d
         base = H + torch.arange(K, dtype=torch.int32, device=dev)
-        t0 = base[None, None, :] - ca - 1  # (m, C, K) first-tap ext column
+        t0 = base - ca - 1  # (..., m, C, K) first-tap ext column
 
-        xs = xp.reshape(c, steps, SB, K).permute(1, 2, 0, 3)  # (steps, SB, C, K)
+        xs = xp.reshape(*files, c, steps, SB, K).movedim(-4, -2)  # (..., steps, SB, C, K)
         fb2 = fb * fb
         fb4 = fb2 * fb2
         hist = state["hist"]
         ys, vs = [], []
         for st in range(steps):
             sl = slice(st * SB, (st + 1) * SB)
-            onehot = onehot_matrix(t0[sl], H + K)  # (SB, C, K, H+K)
-            w = cubic_tap_weights(fr[sl])
+            onehot = onehot_matrix(t0[..., sl, :, :], H + K)  # (..., SB, C, K, H+K)
+            w = cubic_tap_weights(fr[..., sl, :, :])
             # In-chunk quarter: tap k at ext column t0+k == H+j  <=>  one-hot
             # column H+j-k.
             cm = sum(w[k][..., None] * onehot[..., H - k:H - k + K] for k in range(4))
@@ -199,18 +201,19 @@ class Flanger(EffectModel):
                 # one-hot (reads crossing into the chunk hit the pad's zeros
                 # and are taken by cm).
                 hist_pad = F.pad(hist, (0, 3))
-                hstack = torch.stack([hist_pad[:, k:k + H] for k in range(4)], 1)
-                th4 = _matmul(oh[s], hstack.transpose(1, 2))  # (C, K, 4)
-                th = sum(w[k][s] * th4[..., k] for k in range(4))
-                xc = xs[st, s]
+                hstack = torch.stack([hist_pad[..., k:k + H] for k in range(4)], -2)
+                th4 = _matmul(oh[..., s, :, :, :], hstack.transpose(-1, -2))  # (..., C, K, 4)
+                th = sum(w[k][..., s, :, :] * th4[..., k] for k in range(4))
+                xc = xs[..., st, s, :, :]
+                cm_s, c2_s, c4_s = (t[..., s, :, :, :] for t in (cm, c2, c4))
                 b = xc + fb * th
-                u = b + fb4 * _mv(c4[s], b + fb4 * _mv(c4[s], b))
-                u = u + fb2 * _mv(c2[s], u)
-                v = u + fb * _mv(cm[s], u)
-                tap = th + _mv(cm[s], v)
+                u = b + fb4 * _mv(c4_s, b + fb4 * _mv(c4_s, b))
+                u = u + fb2 * _mv(c2_s, u)
+                v = u + fb * _mv(cm_s, u)
+                tap = th + _mv(cm_s, v)
                 ys.append((1.0 - p["mix"]) * xc + p["mix"] * tap)
                 vs.append(v)
-                hist = torch.cat([hist, v], 1)[:, -H:]
+                hist = torch.cat([hist, v], -1)[..., -H:]
         hi_f, lo_f = lfo_advance(state["ph_hi"], state["ph_lo"], dph, total)
-        return self._finish(state, dph, pad, n, torch.cat(ys, 1), torch.cat(vs, 1),
+        return self._finish(state, dph, pad, n, torch.cat(ys, -1), torch.cat(vs, -1),
                             hist, hi_f, lo_f)

@@ -43,7 +43,8 @@ class NoiseGate(EffectModel):
         open_ = level > thresh
         mult = torch.where(open_, 1.0 - att, 1.0 - rel)
         add = torch.where(open_, att, torch.zeros((), device=x.device))
-        # The two-level long scan is single-stream (file mode).
-        scan = affine_scan_long if x.dim() == 2 and x.shape[-1] >= 4096 else affine_hillis
+        # Whole files (one, or a batch on a leading axis) take the
+        # two-level long scan; blocks the full-length Hillis.
+        scan = affine_scan_long if x.shape[-1] >= 4096 else affine_hillis
         gain = scan(mult, add, lead(state["gain"]))
         return {"gain": gain[..., -1]}, x * gain[..., None, :]

@@ -135,7 +135,9 @@ class Octaver(EffectModel):
     def process_file(self, state, p, x):
         """Whole-file path.  At whole-octave baked ratios the taps are the
         exact closed form on the rational position grid (fresh phase,
-        params at their baked targets); otherwise the generic ``process``."""
+        params at their baked targets); otherwise the generic ``process``
+        (K1 over the whole file, its slot grid over a batch's files).
+        x: (C, N), or (F, C, N) for F files with (F, ...) state."""
         if self._pow2_e is None:
             return self.process(state, p, x)
         from aefs_tpu_torch.ops.gridtaps import octaver_taps_pow2
@@ -143,9 +145,10 @@ class Octaver(EffectModel):
         e = self._pow2_e
         size = self.size
         n = x.shape[-1]
+        files = x.shape[:-2]
         dev = x.device
         mix = p["mix"]
-        mono = torch.mean(x, 0)
+        mono = torch.mean(x, -2)
         hist = state["hist"]
 
         s1, s2, _, _ = octaver_taps_pow2(hist, mono, e)
@@ -178,14 +181,18 @@ class Octaver(EffectModel):
         else:
             ph = (-n * ((1 << e) - 1)) % size / size
         ph_hi = np.float32(ph)
+
+        def scalar(v, dtype=_F32):
+            return torch.full(files, v, dtype=dtype, device=dev)
+
         new_state = {
             "hist": ring_push(hist, mono),
-            "n_abs": torch.zeros((), dtype=_I32, device=dev),
-            "base_hi": torch.full((), float(ph_hi), device=dev),
-            "base_lo": torch.full((), float(np.float32(ph - float(ph_hi))), device=dev),
-            "semi_prev": torch.full((), _SEMI_SENTINEL, device=dev),
-            "step_hi": torch.zeros((), device=dev),
-            "step_lo": torch.zeros((), device=dev),
+            "n_abs": scalar(0, _I32),
+            "base_hi": scalar(float(ph_hi)),
+            "base_lo": scalar(float(np.float32(ph - float(ph_hi)))),
+            "semi_prev": scalar(_SEMI_SENTINEL),
+            "step_hi": scalar(0.0),
+            "step_lo": scalar(0.0),
         }
-        y = x * (1.0 - mix) + wet[None, :] * mix
+        y = x * (1.0 - mix) + wet[..., None, :] * mix
         return new_state, y

@@ -152,7 +152,8 @@ class Reverb(EffectModel):
         """Whole-file path: the comb bank runs as one chunked pass through
         the comb-sums kernel (per-side sums plus the damped tail of the
         last three chunks), the allpasses as residue-class scans.  Needs
-        fresh reverb state, which file mode guarantees."""
+        fresh reverb state, which file mode guarantees.  x: (2, N), or
+        (F, 2, N) for F files (one kernel launch for all of them)."""
         pre_out, new_pre, g_all = self._pre_and_gains(state, p, x)
         b = self.n_combs
         lags = self.comb_lags[0] + self.comb_lags[1]
@@ -161,24 +162,27 @@ class Reverb(EffectModel):
                                            side_of, 2, h_static=self.file_damp)
 
         n = x.shape[-1]
+        files = x.shape[:-2]
         lmax = self.comb_lmax
-        comb_y = [y_msc[side].reshape(-1)[:n][None] for side in range(2)]
+        comb_y = [y_msc[..., side, :, :].reshape(*files, -1)[..., :n][..., None, :]
+                  for side in range(2)]
 
         # Final ring state w = x + g*damped over the last ``lmax`` samples,
         # from the damped tail chunks.
-        m = y_msc.shape[1]
+        m = y_msc.shape[-2]
         k = min(m, -(-lmax // c) + 1)  # <= 3 since lmax < 2C
         off = m * c - k * c  # padded-coordinate start of the tail window
-        d_tail = d3[3 - k :].permute(1, 0, 2).reshape(2 * b, k * c)
+        d_tail = d3[..., 3 - k :, :, :].transpose(-3, -2).reshape(*files, 2 * b, k * c)
         take = min(n, lmax)
         start = n - take
-        d_win = d_tail[:, start - off : n - off]
-        x_tail = torch.repeat_interleave(pre_out[:, start:n], b, 0)
+        d_win = d_tail[..., start - off : n - off]
+        x_tail = torch.repeat_interleave(pre_out[..., start:n], b, -2)
         w_win = x_tail + g_all[:, None] * d_win
         if take < lmax:
-            w_win = torch.cat([torch.zeros((2 * b, lmax - take), device=x.device), w_win], 1)
-        lps_all = d_tail[:, n - 1 - off]
+            w_win = torch.cat([torch.zeros(files + (2 * b, lmax - take), device=x.device),
+                               w_win], -1)
+        lps_all = d_tail[..., n - 1 - off]
 
-        new_combs = [w_win[side * b : (side + 1) * b] for side in range(2)]
-        new_lps = [lps_all[side * b : (side + 1) * b] for side in range(2)]
+        new_combs = [w_win[..., side * b : (side + 1) * b, :] for side in range(2)]
+        new_lps = [lps_all[..., side * b : (side + 1) * b] for side in range(2)]
         return self._diffuse_and_mix(state, p, x, comb_y, new_pre, new_combs, new_lps)

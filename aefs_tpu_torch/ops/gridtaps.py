@@ -9,15 +9,16 @@ every tap position is an exact rational on a fixed grid:
 
 For r = 1/D the output lanes split into D classes by n mod D, each reading
 at a constant fractional offset c/D, so the Hermite read collapses into D
-static 4-tap FIRs of the stream; within a grain the read index advances by
-exactly one, so each grain's reads are one contiguous slice.  For r = R
-positions are integers at stride R.  Integer arithmetic end to end: no
-float32 phase floor, parity with the float64 oracle at -80 dBFS.
-Ring-wrap lanes keep the reference semantics via ``_wrap_patch``.
+static 4-tap FIRs of the stream.  For r = R positions are integers at
+stride R.  Integer arithmetic end to end: no float32 phase floor, parity
+with the float64 oracle at -80 dBFS.  Ring-wrap lanes keep the reference
+semantics via ``_wrap_patch``.
 
-Streaming (``octaver_taps_pow2_stream``) carries the phase as an exact
-integer numerator from block to block and reads the same grid from any
-phase.
+Each lane's position comes from an exact integer phase numerator and is
+read with one gather per tap (``_pow2_taps``): from num = 0 over a whole
+file (``octaver_taps_pow2``), and carried from block to block in
+streaming (``octaver_taps_pow2_stream``).  Leading axes are independent
+streams (a pool's slots, a batched render's files).
 """
 
 from __future__ import annotations
@@ -92,75 +93,22 @@ def _hermite_fir_weights(frac: float):
 
 @functools.lru_cache(maxsize=None)
 def _class_weights(d: int, device: torch.device):
-    """(d, 4) float32 ``_fir_frac`` weights of the classes c/d on ``device``:
+    """(d, 4) float32 Hermite FIR weights of the classes c/d on ``device``:
     built once, so a streaming step makes no host-to-device copy (which
     would synchronize the host with the card every block)."""
     return torch.tensor([[float(np.float32(v)) for v in _hermite_fir_weights(c / d)]
                          for c in range(d)], dtype=torch.float32, device=device)
 
 
-def _fir_frac(ext, frac: float):
-    """F[j] = H(frac; ext[j-1], ext[j], ext[j+1], ext[j+2]) — a static
-    4-tap FIR (frac == 0 returns ext itself)."""
-    if frac == 0.0:
-        return ext
-    w0, w1, w2, w3 = (float(np.float32(w)) for w in _hermite_fir_weights(frac))
-    e = F.pad(ext, (1, 2))
-    n = ext.shape[0]
-    return w0 * e[0:n] + w1 * e[1 : n + 1] + w2 * e[2 : n + 2] + w3 * e[3 : n + 3]
-
-
-def _rows(f, start: int, stride: int, row_len: int, n_rows: int):
-    """rows[k, u] = f[start + k*stride + u] for u < row_len."""
-    n_slabs = -(-row_len // stride)
-    need = (n_rows + n_slabs - 1) * stride
-    f = f[start:]
-    if f.shape[0] < need:
-        f = F.pad(f, (0, need - f.shape[0]))
-    chunks = f[:need].reshape(n_rows + n_slabs - 1, stride)
-    if n_slabs == 1:
-        return chunks[:, :row_len]
-    rows = torch.cat([chunks[i : i + n_rows] for i in range(n_slabs)], 1)
-    return rows[:, :row_len]
-
-
-def _interleave_rows(rows):
-    """out[k, u*d + c] = rows[c][k, u] — class streams back in time order."""
-    if len(rows) == 1:
-        return rows[0]
-    n_rows, m = rows[0].shape
-    return torch.stack(rows, -1).reshape(n_rows, m * len(rows))
-
-
-def octaver_taps_pow2_stream(hist, x, e: int, num):
-    """Both octaver taps for ratio 2^e from an arbitrary carried phase,
-    exactly: the streaming extension of ``octaver_taps_pow2``.
-
-    The phase is carried as an integer numerator ``num``:
-
-        e <  0 (ratio 1/D):  phase = num / (D*S),  num in [0, D*S)
-        e >= 0 (ratio R):    phase = num / S,      num in [0, S)
-
-    advanced per sample by +(D-1) mod D*S (down) or -(R-1) mod S (up), an
-    exact integer recurrence with a closed-form block advance, so no float32
-    phase accumulates (reference semantics: octaver.py:17-82).
-
-    Each lane's read position is an integer computed from ``num`` in int64:
-    pitch down, lane n reads the static 4-tap FIR of its class c = (n - num)
-    mod D (fraction c/D, ``_fir_frac``'s weights) at S + n - ca; pitch up,
-    the plain sample at S + n - r.  One gather per tap.  (The JAX package
-    evaluates the same reads as per-class contiguous slices, a TPU layout
-    choice; the values are the same.)
-
-    hist: (..., S) chronological ring history; x: (..., N) current block;
-    num: integer (...), the leading axes being independent streams.
-    Returns (s1, s2, p1, p2, new_num) with new_num int32."""
+def _pow2_taps(hist, x, e: int, num):
+    """Both octaver taps for ratio 2^e from the integer phase numerator
+    ``num`` (see ``octaver_taps_pow2_stream``), one gather per tap.
+    hist: (..., S); x: (..., N); num: integer (...).  Returns (s1, s2, p1,
+    p2, new_num) with new_num int32."""
     from aefs_tpu_torch.ops.ringbuf import _take_last, _wrap_patch
 
     s = hist.shape[-1]
     n = x.shape[-1]
-    if not pow2_stream_geometry_ok(s, e, n):
-        raise ValueError(f"no streaming exact grid for ring {s}, exponent {e}, block {n}")
     dev = x.device
     f32 = torch.float32
     num = num.to(torch.int64)[..., None]
@@ -205,77 +153,44 @@ def octaver_taps_pow2_stream(hist, x, e: int, num):
     return s1, s2, r1.to(f32) / den_t, r2.to(f32) / den_t, new_num.to(torch.int32)
 
 
-def octaver_taps_pow2(hist, x, e: int):
-    """Both octaver taps + exact phasor streams for ratio 2^e from fresh
-    phase.  hist: (S,) chronological ring history; x: (N,) signal.
-    Returns (s1, s2, p1, p2): taps (ring-wrap lanes patched to reference
-    semantics) and the exact phasors in [0, 1)."""
-    from aefs_tpu_torch.ops.ringbuf import _wrap_patch
+def octaver_taps_pow2_stream(hist, x, e: int, num):
+    """Both octaver taps for ratio 2^e from an arbitrary carried phase,
+    exactly: the streaming extension of ``octaver_taps_pow2``.
 
+    The phase is carried as an integer numerator ``num``:
+
+        e <  0 (ratio 1/D):  phase = num / (D*S),  num in [0, D*S)
+        e >= 0 (ratio R):    phase = num / S,      num in [0, S)
+
+    advanced per sample by +(D-1) mod D*S (down) or -(R-1) mod S (up), an
+    exact integer recurrence with a closed-form block advance, so no float32
+    phase accumulates (reference semantics: octaver.py:17-82).
+
+    Each lane's read position is an integer computed from ``num`` in int64:
+    pitch down, lane n reads the static 4-tap Hermite FIR of its class
+    c = (n - num) mod D (fraction c/D, ``_class_weights``) at S + n - ca;
+    pitch up, the plain sample at S + n - r.  One gather per tap.  (The JAX
+    package evaluates the same reads as per-class contiguous slices, a TPU
+    layout choice; the values are the same.)
+
+    hist: (..., S) chronological ring history; x: (..., N) current block;
+    num: integer (...), the leading axes being independent streams.
+    Returns (s1, s2, p1, p2, new_num) with new_num int32."""
     s = hist.shape[-1]
     n = x.shape[-1]
-    assert pow2_geometry_ok(s, e), (s, e)
-    dev = x.device
-    f32, i32 = torch.float32, torch.int32
-    n_idx = torch.arange(n, dtype=i32, device=dev)
-    ext_plain = torch.cat([hist, x])
+    if not pow2_stream_geometry_ok(s, e, n):
+        raise ValueError(f"no streaming exact grid for ring {s}, exponent {e}, block {n}")
+    return _pow2_taps(hist, x, e, num)
 
-    if e == 0:
-        # ratio 1: ago1 = 0 (every lane wrap-patched), ago2 = S/2 constant.
-        zero = torch.zeros((n,), device=dev)
-        r1 = torch.zeros((n,), dtype=i32, device=dev)
-        r2 = torch.full((n,), s // 2, dtype=i32, device=dev)
-        s1 = _wrap_patch(ext_plain, s, n, r1, zero, ext_plain[s : s + n])
-        s2 = _wrap_patch(ext_plain, s, n, r2, zero, ext_plain[s // 2 : s // 2 + n])
-        return s1, s2, zero, torch.full((n,), 0.5, device=dev)
 
-    if e < 0:
-        d = 1 << (-e)
-        m = s // (d - 1)
-        w = d * m  # grain period in output samples
-        ext = F.pad(ext_plain, (0, 2 * w + 16))
-        firs = [_fir_frac(ext, c / d) for c in range(d)]
-
-        def interleave(start: int, n_rows: int):
-            rows = [_rows(firs[c], start, w, m, n_rows) for c in range(d)]
-            return _interleave_rows(rows).reshape(n_rows * w)
-
-        k1 = -(-n // w)
-        bulk1 = interleave(s, k1)[:n]
-        k2 = -(-(n + w // 2) // w)
-        bulk2 = interleave((s - m) // 2, k2)[w // 2 : w // 2 + n]
-
-        ds = d * s
-        r1 = torch.remainder(n_idx * (d - 1), ds)  # ago1 * D, exact integers
-        r2 = torch.remainder(r1 + ds // 2, ds)
-        p1 = r1.to(f32) / float(ds)
-        p2 = r2.to(f32) / float(ds)
-        outs = []
-        for r, bulk in ((r1, bulk1), (r2, bulk2)):
-            ca = torch.div(r + d - 1, d, rounding_mode="floor")
-            frac = ca.to(f32) - r.to(f32) / float(d)
-            outs.append(_wrap_patch(ext, s, n, ca, frac, bulk))
-        return outs[0], outs[1], p1, p2
-
-    # e > 0: ratio R, integer positions at stride R.
-    r_up = 1 << e
-    mp = s // (r_up - 1)  # grain period in output samples
-    ext = F.pad(ext_plain, (0, 2 * r_up * mp + 16))
-    elen = (ext.shape[0] // r_up) * r_up
-    ext_str = ext[:elen].reshape(-1, r_up)[:, 0]  # ext[R*i]
-
-    k1 = -(-n // mp)
-    bulk1 = _rows(ext_str, 0, mp // r_up, mp, k1).reshape(k1 * mp)[:n]
-    lead = mp // (2 * r_up)
-    ext_str2 = F.pad(ext_str, (lead, 0))
-    k2 = -(-(n + mp // 2) // mp)
-    bulk2 = _rows(ext_str2, 0, mp // r_up, mp, k2).reshape(k2 * mp)[mp // 2 : mp // 2 + n]
-
-    r1 = torch.remainder(-n_idx * (r_up - 1), s)  # ago1, exact integers
-    r2 = torch.remainder(r1 + s // 2, s)
-    p1 = r1.to(f32) / float(s)
-    p2 = r2.to(f32) / float(s)
-    zero = torch.zeros((n,), device=dev)
-    s1 = _wrap_patch(ext, s, n, r1, zero, bulk1)
-    s2 = _wrap_patch(ext, s, n, r2, zero, bulk2)
-    return s1, s2, p1, p2
+def octaver_taps_pow2(hist, x, e: int):
+    """Both octaver taps + exact phasor streams for ratio 2^e from fresh
+    phase, over a whole signal: the stream taps' gathers from num = 0 (the
+    JAX package's per-class FIR slices read the same values).
+    hist: (..., S) chronological ring history; x: (..., N) signal, the
+    leading axes being independent files.  Returns (s1, s2, p1, p2): taps
+    (ring-wrap lanes patched to reference semantics) and the exact phasors
+    in [0, 1)."""
+    assert pow2_geometry_ok(hist.shape[-1], e), (hist.shape[-1], e)
+    num = torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
+    return _pow2_taps(hist, x, e, num)[:4]

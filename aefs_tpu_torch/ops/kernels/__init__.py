@@ -88,9 +88,9 @@ def library():
             lib.aefs_chorus_step.argtypes = [p, ll, ll, i, i, i, p, i, f] + [p] * 9
             lib.aefs_chorus_step.restype = i
             lib.aefs_comb_sums.argtypes = [
-                p, i, i, p, p, p, i, p, p, i, i, i, i, p, p, p, p]
+                p, i, i, i, p, p, p, i, p, p, i, i, i, i, p, p, p, p]
             lib.aefs_comb_sums.restype = i
-            lib.aefs_comb_chunks.argtypes = [p, i, i, p, p, p, p, i, i, i, p, p, p]
+            lib.aefs_comb_chunks.argtypes = [p, i, i, i, p, p, p, p, i, i, i, p, p, p]
             lib.aefs_comb_chunks.restype = i
             _lib = lib
     return _lib

@@ -19,7 +19,9 @@ params and scalar state leaves (S,), the history (S, ...).  The kernels
 give their grid a slot dimension, so one launch steps every slot, each
 slot with its own params and its own serial prologue; a call without slot
 dims is the S = 1 launch of the same kernel.  Each slot's outputs equal
-the plain step's on that slot bit for bit.
+the plain step's on that slot bit for bit.  A batched file render passes
+its files as the slots with 0-dim params shared by all of them; the
+wrappers give such a param one value per slot before either version runs.
 """
 
 from __future__ import annotations
@@ -85,6 +87,14 @@ def _check_signal(x, hist, rows_of_hist):
     if x.stride(-1) != 1:
         x = x.contiguous()
     return x, dev, slots
+
+
+def _per_slot(p, names, slots):
+    """``p`` with every 0-dim param of ``names`` repeated once per slot
+    (a batched render's files share their params)."""
+    if not slots:
+        return p
+    return {**p, **{k: p[k].expand(slots).contiguous() for k in names if p[k].dim() == 0}}
 
 
 def _slot_strides(x, slots):
@@ -164,6 +174,7 @@ def octaver_step(state, p, x):
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (counted in ``octaver_step.launches``) or raise."""
     hist = state["hist"]
+    p = _per_slot(p, ("semitones", "mix"), x.shape[:-2])
     if hist.device.type == "cpu":
         return octaver_step_plain(state, p, x)
     x, dev, slots = _check_signal(x, hist, 0)
@@ -237,6 +248,7 @@ def chorus_step(state, p, x, fs):
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (counted in ``chorus_step.launches``) or raise."""
     hist = state["hist"]
+    p = _per_slot(p, _CHORUS_PARAMS, x.shape[:-2])
     if hist.device.type == "cpu":
         return chorus_step_plain(state, p, x, fs)
     x, dev, slots = _check_signal(x, hist, 1)

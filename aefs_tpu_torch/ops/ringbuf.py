@@ -203,13 +203,14 @@ def comb_bank_file_sums(x, lags, g, h, side_of, n_sides: int, h_static=None):
         y_b[n]      = x[side_of[b], n - L_b] + g_b * damped_b[n - L_b]
         damped_b[n] = h * damped_b[n-1] + (1 - h) * y_b[n]
 
-    in chunks of C (C <= L_b < 2C).  x: (S, N); lags/side_of: static ints;
-    g: (B,); h: 0-dim; h_static: the baked damping (file mode) that lets
-    the kernel truncate the damping to an exact FIR.
+    in chunks of C (C <= L_b < 2C).  x: (S, N), or (F, S, N) for F files
+    sharing g and h (one launch for all of them); lags/side_of: static
+    ints; g: (B,); h: 0-dim; h_static: the baked damping (file mode) that
+    lets the kernel truncate the damping to an exact FIR.
 
     Returns (ysum (n_sides, M, C) per-side comb sums, d_tail (3, B, C) the
     damped state of the last three chunks — leading rows zero for shorter
-    signals — and C)."""
+    signals — and C); with a file axis, each with a leading F."""
     from aefs_tpu_torch.ops.kernels.comb import comb_sums
 
     c = comb_chunk_size(lags)
@@ -256,9 +257,8 @@ def allpass_block(hist, x, a, lag: int):
 
     i.e. y[n] = base[n] + a*y[n - lag] with
     base[n] = (hist[n] if n < lag else x[n - lag]) - a*x[n].
-    hist: (..., lag) chronological written values; x: (..., N); the
-    residue-class scan of long blocks is single-stream.  Returns (y,
-    new_hist)."""
+    hist: (..., lag) chronological written values; x: (..., N).  Returns
+    (y, new_hist)."""
     n = x.shape[-1]
     if n <= lag:
         y = hist[..., :n] - a * x

@@ -81,17 +81,20 @@ def affine_scan(mult, add, init, axis: int = 0):
 
 
 def affine_scan_long(mult, add, init, chunk: int = 512):
-    """1-D ``affine_hillis`` for long signals, two-level blocked: an
-    in-chunk scan over (N/chunk, chunk) rows, then a small cross-row scan
-    over the row summaries.  mult, add: (N,); init: scalar."""
-    n = add.shape[0]
+    """``affine_hillis`` for long signals, two-level blocked: an in-chunk
+    scan over (N/chunk, chunk) rows, then a small cross-row scan over the
+    row summaries.  mult: broadcastable to ``add`` (..., N); init:
+    broadcastable to (..., 1).  Leading axes are independent streams (the
+    files of a batched render), each scanned with the same operations."""
+    n = add.shape[-1]
     c = int(chunk)
     if n <= c:
         return affine_hillis(mult, add, init)
+    lead_shape = add.shape[:-1]
     m = -(-n // c)
-    a_c = F.pad(torch.broadcast_to(_f32(mult, add), (n,)), (0, m * c - n),
-                value=1.0).reshape(m, c)
-    b_c = F.pad(add, (0, m * c - n)).reshape(m, c)
+    a_c = F.pad(torch.broadcast_to(_f32(mult, add), add.shape), (0, m * c - n),
+                value=1.0).reshape(*lead_shape, m, c)
+    b_c = F.pad(add, (0, m * c - n)).reshape(*lead_shape, m, c)
     s = 1
     while s < c:
         a_sh = _shift(a_c, s, 1.0)
@@ -100,10 +103,10 @@ def affine_scan_long(mult, add, init, chunk: int = 512):
         a_c = a_c * a_sh
         s *= 2
     init = _f32(init, add)
-    s_out = affine_hillis(a_c[:, -1], b_c[:, -1], init)  # value leaving each row
-    s_in = torch.cat([init.reshape(1), s_out[:-1]])
-    y = a_c * s_in[:, None] + b_c
-    return y.reshape(m * c)[:n]
+    s_out = affine_hillis(a_c[..., -1], b_c[..., -1], init)  # value leaving each row
+    s_in = torch.cat([torch.broadcast_to(init, lead_shape + (1,)), s_out[..., :-1]], -1)
+    y = a_c * s_in[..., None] + b_c
+    return y.reshape(*lead_shape, m * c)[..., :n]
 
 
 def maxtimes_hillis(mult, add, init):
@@ -129,16 +132,18 @@ def maxtimes_hillis(mult, add, init):
 
 
 def maxtimes_scan_long(mult, add, init, chunk: int = 512):
-    """1-D ``maxtimes_hillis`` for long signals, two-level blocked like
-    ``affine_scan_long``.  mult, add: (N,) nonnegative; init: scalar."""
-    n = add.shape[0]
+    """``maxtimes_hillis`` for long signals, two-level blocked like
+    ``affine_scan_long``.  mult, add: (..., N) nonnegative (``mult``
+    broadcast first); init: nonnegative, broadcastable to (..., 1)."""
+    n = add.shape[-1]
     c = int(chunk)
     if n <= c:
         return maxtimes_hillis(mult, add, init)
+    lead_shape = add.shape[:-1]
     m = -(-n // c)
-    a_c = F.pad(torch.broadcast_to(_f32(mult, add), (n,)), (0, m * c - n),
-                value=1.0).reshape(m, c)
-    b_c = F.pad(add, (0, m * c - n)).reshape(m, c)
+    a_c = F.pad(torch.broadcast_to(_f32(mult, add), add.shape), (0, m * c - n),
+                value=1.0).reshape(*lead_shape, m, c)
+    b_c = F.pad(add, (0, m * c - n)).reshape(*lead_shape, m, c)
     s = 1
     while s < c:
         a_sh = _shift(a_c, s, 1.0)
@@ -147,10 +152,10 @@ def maxtimes_scan_long(mult, add, init, chunk: int = 512):
         a_c = a_c * a_sh
         s *= 2
     init = _f32(init, add)
-    s_out = maxtimes_hillis(a_c[:, -1], b_c[:, -1], init)  # value leaving each row
-    s_in = torch.cat([init.reshape(1), s_out[:-1]])
-    y = torch.maximum(a_c * s_in[:, None], b_c)
-    return y.reshape(m * c)[:n]
+    s_out = maxtimes_hillis(a_c[..., -1], b_c[..., -1], init)  # value leaving each row
+    s_in = torch.cat([torch.broadcast_to(init, lead_shape + (1,)), s_out[..., :-1]], -1)
+    y = torch.maximum(a_c * s_in[..., None], b_c)
+    return y.reshape(*lead_shape, m * c)[..., :n]
 
 
 def minaffine_hillis(mult, add, cap, init):
@@ -256,26 +261,30 @@ def lag_affine_scan(base, a, lag: int, row_chunk: int = 128):
     classes; reshaping to (M, lag) rows makes it a first-order scan over
     rows, solved per chunk of C rows as one lower-triangular Toeplitz
     matmul T[j, i] = a^(j-i) plus an a^C-coefficient carry scan over the
-    chunk summaries.  base: (N,).  Returns y: (N,)."""
+    chunk summaries.  base: (..., N), leading axes independent signals (the
+    files of a batched render).  Returns y: (..., N)."""
     n = base.shape[-1]
+    lead_shape = base.shape[:-1]
     m = -(-n // lag)
     a = _f32(a, base)
-    padded = F.pad(base, (0, m * lag - n)).reshape(m, lag)
+    padded = F.pad(base, (0, m * lag - n)).reshape(*lead_shape, m, lag)
+    zeros = torch.zeros((lag,), device=base.device)
 
     if m <= 8:
-        y = affine_scan(a, padded, torch.zeros((lag,), device=base.device))
-        return y.reshape(m * lag)[:n]
+        y = affine_scan(a, padded, zeros, axis=-2)
+        return y.reshape(*lead_shape, m * lag)[..., :n]
 
     c = min(int(row_chunk), -(-m // 8) * 8)
     mp = -(-m // c)
-    chunks = F.pad(padded, (0, 0, 0, mp * c - m)).reshape(mp, c, lag)
+    chunks = F.pad(padded, (0, 0, 0, mp * c - m)).reshape(*lead_shape, mp, c, lag)
     h = torch.pow(a, torch.arange(c + 1, dtype=torch.float32, device=base.device))
-    y_loc = _matmul(toeplitz_lower(h, c), chunks)  # (mp, c, lag)
+    y_loc = _matmul(toeplitz_lower(h, c), chunks)  # (..., mp, c, lag)
     # Cross-chunk carries: s_k = a^C * s_{k-1} + y_loc[k, -1, :], s_{-1} = 0.
-    s = affine_scan(h[c], y_loc[:, -1, :], torch.zeros((lag,), device=base.device))
-    s_in = torch.cat([torch.zeros((1, lag), device=base.device), s[:-1]], 0)
-    y = y_loc + h[1 : c + 1][None, :, None] * s_in[:, None, :]
-    return y.reshape(mp * c * lag)[: m * lag][:n]
+    s = affine_scan(h[c], y_loc[..., -1, :], zeros, axis=-2)
+    s_in = torch.cat([torch.zeros(lead_shape + (1, lag), device=base.device),
+                      s[..., :-1, :]], -2)
+    y = y_loc + h[1 : c + 1][:, None] * s_in[..., None, :]
+    return y.reshape(*lead_shape, mp * c * lag)[..., : m * lag][..., :n]
 
 
 def _signed_pow(p, k):
@@ -427,7 +436,8 @@ def biquad_block(x, b0, b1, b2, a1, a2, state):
     channel; coefficients float32 (...) (constant within the block), one
     per leading index (the pool's slots) or 0-dim.  Returns (y, new_state),
     float32.  Blocks of 1,024 samples or more take the chunked Toeplitz
-    solve, which is single-stream (0-dim coefficients).
+    solve, which takes 0-dim coefficients (a batched render's files share
+    them; the signal keeps its leading axes).
 
     Solved in float64 from the float32 coefficients, input and state, and
     rounded once.  The JAX package solves in float32, and both its forms

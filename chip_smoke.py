@@ -12,7 +12,9 @@ Drives the port's main path (aefs_tpu_torch) end to end on the card:
    state at n_abs = 2^28 - 100 (the re-anchor fires);
 4. K2 (whole-file reverb comb sums) against its plain version on the card,
    at the flagship reverb's lags over the demo file's length, with the
-   baked-damping FIR and the traced-damping scan;
+   baked-damping FIR and the traced-damping scan; then its file grid:
+   x (F, 2, N) at the demo's length for F = 1, 4, 16 in one launch, each
+   file bit-equal to an F = 1 launch, timed beside its bound;
 5. K3 (the chorus's block step) against its plain step, bit for bit, over
    2 x 256 blocks with a rate change mid-run, a clamped delay law, and
    2 x 892,800 (the demo file in one call);
@@ -32,8 +34,14 @@ Drives the port's main path (aefs_tpu_torch) end to end on the card:
    "Multiband Master"), against the CPU engine;
 9. the session layer and the CLI's batch and resumable modes:
    ``render_batch`` of the flagship and "Lush Chorus" over three ragged
-   files (the demo, its first 10 s, its last 7 s; K2 once per file, K3 once
-   per "Lush Chorus" file) against ``process_offline`` and the CPU port;
+   files (the demo, its first 10 s, its last 7 s; one batched pass, so K2
+   and K3 launch once per batch) against ``process_offline`` and the CPU
+   port; ``render_batch_sweep``: demo-length files (the demo rotated), the
+   flagship at F = 1, 4, 16 and "Jet Flanger", "Lush Chorus", "Rain Delay"
+   and "Concert Hall (Convolution)" at F = 4, each file within -120 dBFS of
+   its own render on the card and file 0 within -90 dBFS of the CPU port,
+   with wall time, aggregate realtime factor, launches, device kernels and
+   K2's device time per batch;
    ``--batch`` as a subprocess, byte-equal to ``render_batch``'s encoding;
    the flagship's file stream (bit-equal to the block loop, K1 once per
    block) with its ``BlockTimer`` snapshot; the pipelined step (bit-equal
@@ -86,7 +94,8 @@ of the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s, from this run's
 shapes.  No single PyTorch call computes any of the four functions, so
 ``library_ms`` is null.  K1's and K3's records carry ``slot_grid``: the same
-figures for one launch over S = 1, 16 and 64 slots.
+figures for one launch over S = 1, 16 and 64 slots; K2's carries
+``file_grid``: one launch over F = 1, 4 and 16 demo-length files.
 
 Any failure raises (non-zero exit).  The last two lines of standard output are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.  Imports no
@@ -178,6 +187,15 @@ SLOT_GRID_BLOCKS = 40
 POOL_PRESETS = ("flagship", "Lush Chorus", "Rain Delay")
 TIMED_STEPS = 100
 SWEEP_S = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+# The batched render (phase 9): K2's file grid and the sweep's batch sizes.
+# A batch's file i is the demo rotated by i/16 of its length (file 0 the
+# demo itself), so every file is uncut and each differs.
+FILE_GRID_F = (1, 4, 16)
+SWEEP_ROTATIONS = 16
+RENDER_SWEEP = (("flagship", FILE_GRID_F), ("Jet Flanger", (4,)), ("Lush Chorus", (4,)),
+                ("Rain Delay", (4,)), ("Concert Hall (Convolution)", (4,)))
+BATCH_DBFS_TOL = -120.0  # a batched file against its own render on the card
+CPU_FILE_REF = {}  # the CPU port's demo render per chain, kept by file_mode
 
 
 def phase(name, **fields):
@@ -352,15 +370,21 @@ def check_k1(dev, n_file):
     return record(worst, ms, dev_ms, plain_ms, bnd, bitwise=True)
 
 
-def check_k2(dev, demo):
-    """K2 at the flagship reverb's lags over the demo's length: FIR damping
-    (baked h = 0.05, the flagship's) and the log-step scan (h = 0.6)."""
+def flagship_combs(dev):
+    """The flagship reverb's comb lags, side map, chunk and the gains of
+    rt60 = 2.1 s, on ``dev``."""
     rev = Reverb(FS, 4096, file_mode=True, file_damp=0.05)
     lags = tuple(rev.comb_lags[0] + rev.comb_lags[1])
     side_of = (0,) * rev.n_combs + (1,) * rev.n_combs
-    c = comb_chunk_size(lags)
-    x = torch.from_numpy(np.ascontiguousarray(demo.T)).to(dev)  # (2, N) real audio
     g = torch.pow(10.0, -3.0 * (torch.tensor(lags, dtype=torch.float32) / FS) / 2.1).to(dev)
+    return lags, side_of, comb_chunk_size(lags), g
+
+
+def check_k2(dev, demo):
+    """K2 at the flagship reverb's lags over the demo's length: FIR damping
+    (baked h = 0.05, the flagship's) and the log-step scan (h = 0.6)."""
+    lags, side_of, c, g = flagship_combs(dev)
+    x = torch.from_numpy(np.ascontiguousarray(demo.T)).to(dev)  # (2, N) real audio
     n, b = x.shape[1], len(lags)
     m = -(-n // c)
     worst, res = 0.0, {}
@@ -391,6 +415,58 @@ def check_k2(dev, demo):
               us_per_step=1000.0 * ms / m, **bnd)
     ms, dev_ms, plain_ms, bnd = res[0.05]  # the flagship's path
     return record(worst, ms, dev_ms, plain_ms, bnd, us_per_step=1000.0 * ms / m)
+
+
+def sweep_files(demo, files):
+    """``files`` demo-length files: the demo rotated by i/16 of its length."""
+    step = demo.shape[0] // SWEEP_ROTATIONS
+    return [np.roll(demo, -i * step, axis=0) for i in range(files)]
+
+
+def check_k2_file_grid(dev, demo):
+    """K2 with a file axis, x (F, 2, N) at the demo's length, F = 1, 4, 16,
+    the flagship's lags and FIR damping: one launch for every file, each
+    file bit-equal to an F = 1 launch on its rows and within K2's bars of
+    the plain version (first and last file); times beside the bound."""
+    lags, side_of, c, g = flagship_combs(dev)
+    ht = torch.tensor(0.05, dtype=torch.float32, device=dev)
+    b = len(lags)
+    res = {}
+    for files in FILE_GRID_F:
+        x = torch.from_numpy(np.ascontiguousarray(
+            np.stack([f.T for f in sweep_files(demo, files)]))).to(dev)
+        n = x.shape[-1]
+        m = -(-n // c)
+        run = lambda: comb_sums(x, g, ht, lags, c, side_of, 2, 0.05)  # noqa: E731
+        ysum, d_tail = run()
+        same = True
+        for f in range(files):
+            y1, d1 = comb_sums(x[f], g, ht, lags, c, side_of, 2, 0.05)
+            same = same and torch.equal(ysum[f], y1) and torch.equal(d_tail[f], d1)
+        worst = 0.0
+        for f in sorted({0, files - 1}):
+            yp, dp = comb_sums_plain(x[f], g, ht, lags, c, side_of, 2)
+            e_sum = float((ysum[f] - yp).abs().max())
+            e_tail = float((d_tail[f] - dp).abs().max())
+            if e_sum >= K2_SUM_TOL or e_tail >= K2_TAIL_TOL:
+                raise AssertionError(f"K2 F={files} file {f}: sums {e_sum}, tail {e_tail}")
+            worst = max(worst, e_sum, e_tail)
+        torch.cuda.synchronize()
+        if not same:
+            raise AssertionError(f"K2 F={files}: a file differs from its F = 1 launch")
+        ms = cuda_ms(run, 10)
+        dev_ms = device_ms(run, ("comb_bank_kernel", "comb_side_sums_kernel"), 5)
+        plain_ms = cuda_ms(lambda: comb_sums_plain(x, g, ht, lags, c, side_of, 2), 1)
+        # x read once, g and h once for all files; per file the sums and tail.
+        bnd = bound(4 * (x.numel() + b + 1) + 4 * files * (2 * m * c + 3 * b * c),
+                    files * b * m * c * (COMB_OPS + 1))
+        res[files] = {"max_abs_err": worst, "bitwise_vs_f1_launches": True, "ms": ms,
+                      "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+                      "bound_by": bnd["bound_by"]}
+        phase("k2_file_grid", files=files, n=n, chunk=c, chunks=m, **res[files],
+              device_ms_per_file=None if dev_ms is None else dev_ms / files,
+              bytes=bnd["bytes"], flops=bnd["flops"])
+    return res
 
 
 def chorus_run(step, dev, n, rates, seed, base_ms=14.0, depth_ms=4.0):
@@ -452,11 +528,8 @@ def check_k4(dev, demo):
     """K4 at the flagship reverb's 8 lags and its two sides over the demo
     (traced damping h = 0.25, the scan), through the entry
     ``ringbuf.comb_bank_file_chunks`` from a zeroed counter, against plain."""
-    rev = Reverb(FS, 4096, file_mode=True, file_damp=0.05)
-    lags = tuple(rev.comb_lags[0] + rev.comb_lags[1])
-    side_of = (0,) * rev.n_combs + (1,) * rev.n_combs
+    lags, side_of, _, g = flagship_combs(dev)
     x = torch.from_numpy(np.ascontiguousarray(demo.T)).to(dev)
-    g = torch.pow(10.0, -3.0 * (torch.tensor(lags, dtype=torch.float32) / FS) / 2.1).to(dev)
     h = torch.tensor(0.25, dtype=torch.float32, device=dev)
     (y, damped, c), counts = count_launches(
         lambda: comb_bank_file_chunks(x, lags, g, h, side_of=side_of), need=("comb_chunks",))
@@ -501,6 +574,7 @@ def file_mode(name, cfg, audio, fs, need=()):
     t0 = time.perf_counter()
     _, ref = process_offline(cfg, audio, fs, device="cpu")
     t_cpu = time.perf_counter() - t0
+    CPU_FILE_REF[name] = ref
     err = err_dbfs(out, ref)
     if not err <= DBFS_TOL:
         raise AssertionError(f"file mode {name}: card vs CPU {err:.1f} dBFS > {DBFS_TOL}")
@@ -608,6 +682,73 @@ def batch_render(name, cfg, files, need):
           audio_s=audio_s, realtime_x=audio_s / wall, launches=counts,
           vs_process_offline_dbfs=errs_single, vs_cpu_dbfs=errs_cpu)
     return outs
+
+
+def profile_render(fn):
+    """One call of ``fn`` under ``torch.profiler``: (device kernels, copies,
+    device busy ms (the union of device intervals), K2's device ms)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [ev for ev in prof.profiler.kineto_results.events() if ev.device_type() == cuda]
+    copies = sum(ev.name().startswith(("Memcpy", "Memset")) for ev in evs)
+    k2_ns = sum(ev.duration_ns() for ev in evs
+                if any(k in ev.name() for k in ("comb_bank_kernel", "comb_side_sums_kernel")))
+    busy = union_ms([(ev.start_ns(), ev.start_ns() + ev.duration_ns()) for ev in evs])
+    return len(evs) - copies, copies, busy, k2_ns / 1e6
+
+
+def render_batch_sweep(demo):
+    """``render_batch`` of demo-length files (``sweep_files``) on the card:
+    the flagship at F = 1, 4, 16 and four presets at F = 4, each from
+    zeroed counters after one cold call; every file within -120 dBFS of its
+    own ``process_offline`` on the card, file 0 (the demo) within -90 dBFS
+    of the CPU port's render (kept by ``file_mode``); K2 and K3 launched
+    once per batch.  A profiled call counts the device kernels and K2's
+    device time ("Jet Flanger", ~129k launches a batch, is not profiled)."""
+    rows = []
+    for name, sizes in RENDER_SWEEP:
+        cfg = FLAGSHIP if name == "flagship" else DEFAULT_PRESETS[name]
+        types = {c["type"] for c in cfg}
+        need = ({"comb_sums": 1} if "reverb" in types else {}) | (
+            {"chorus_step": 1} if "chorus" in types else {})
+        for files in sizes:
+            batch = sweep_files(demo, files)
+            render_batch(cfg, batch, FS, device="cuda")  # cold: allocator, plans
+
+            def warm():
+                t0 = time.perf_counter()
+                out = render_batch(cfg, batch, FS, device="cuda")
+                return out, time.perf_counter() - t0
+
+            (outs, wall), counts = count_launches(warm, exact=need)
+            errs = []
+            for f, out in zip(batch, outs):
+                if out.shape != (f.shape[0], 2) or not np.all(np.isfinite(out)):
+                    raise AssertionError(f"render_batch_sweep {name}: bad output {out.shape}")
+                errs.append(err_dbfs(out, process_offline(cfg, f, FS, device="cuda")[1]))
+            vs_cpu = err_dbfs(outs[0], CPU_FILE_REF[name])
+            if max(errs) > BATCH_DBFS_TOL or vs_cpu > DBFS_TOL:
+                raise AssertionError(f"render_batch_sweep {name} F={files}: vs process_offline "
+                                     f"{max(errs)} dBFS (bar {BATCH_DBFS_TOL}), vs CPU "
+                                     f"{vs_cpu} (bar {DBFS_TOL})")
+            kernels = copies = busy = k2_ms = None
+            if name != "Jet Flanger":
+                kernels, copies, busy, k2_ms = profile_render(
+                    lambda: render_batch(cfg, batch, FS, device="cuda"))
+            audio_s = files * demo.shape[0] / FS
+            row = {"chain": name, "files": files, "frames": demo.shape[0], "wall_s": wall,
+                   "audio_s": audio_s, "realtime_x": audio_s / wall, "launches": counts,
+                   "device_kernels": kernels, "device_copies": copies,
+                   "device_busy_ms": busy, "device_busy_share": None if busy is None
+                   else busy / (1000.0 * wall),
+                   "k2_device_ms_per_call": k2_ms if "reverb" in types else None,
+                   "vs_process_offline_dbfs": max(errs), "vs_cpu_dbfs": vs_cpu}
+            phase("render_batch_sweep", **row)
+            rows.append(row)
+    return rows
 
 
 def run_cli(*args):
@@ -1720,6 +1861,7 @@ def main():
         raise AssertionError(f"unexpected demo file: {demo.shape} @ {fs}")
     k1 = check_k1(dev, demo.shape[0])
     k2 = check_k2(dev, demo)
+    k2["file_grid"] = check_k2_file_grid(dev, demo)
     k3 = check_k3(dev, demo.shape[0])
     k4 = check_k4(dev, demo)  # K4's own path: its entry, from a zeroed counter
 
@@ -1747,11 +1889,12 @@ def main():
     WORK.mkdir(parents=True)
     files = demo_files(demo)
     walls = {}
-    for chain, cfg, need in (("flagship", FLAGSHIP, {"comb_sums": 3}),
+    for chain, cfg, need in (("flagship", FLAGSHIP, {"comb_sums": 1}),
                              ("Lush Chorus", DEFAULT_PRESETS["Lush Chorus"],
-                              {"comb_sums": 3, "chorus_step": 3})):
+                              {"comb_sums": 1, "chorus_step": 1})):
         _, walls[f"render_batch {chain}"] = timed_phase(
             lambda: batch_render(chain, cfg, files, need))
+    _, walls["render_batch_sweep"] = timed_phase(lambda: render_batch_sweep(demo))
     for step, fn in (("cli_batch", lambda: cli_batch(files, WORK)),
                      ("file_stream", lambda: file_stream(mono)),
                      ("pipelined", lambda: pipelined(mono)),

@@ -1,7 +1,7 @@
 """Where the PyTorch port's time goes on one CUDA card.
 
     python3 scripts/profile_port.py [--preset NAME] [--blocks 40] [--pool S [--grid]]
-                                    [--out OUT.json]
+                                    [--batch F] [--out OUT.json]
 
 Profiles the flagship chain (``aefs_tpu_torch.engine.flagship``), or the factory
 preset ``--preset`` names, of ``aefs_tpu_torch`` two ways, on the card,
@@ -15,7 +15,13 @@ under ``torch.profiler``:
   (aefs_tpu_torch/server/pool.py), every slot streaming its own part of
   the demo, one synchronous pool step per profiled step; ``--grid`` makes
   it the grid pool (``SessionPool(grid=True)``: a whole-octave octaver on
-  its exact integer grid instead of the K1 step).
+  its exact integer grid instead of the K1 step);
+- with ``--batch F``: ``render_batch`` of F demo-length files (the demo
+  rotated by i/16 of its length), one batched ``Chain.process_whole``;
+  besides the profile, the unprofiled call's host clock split into
+  ``pre_ms`` (mono downmix, padding, the chain's build, the upload),
+  ``pass_ms`` (``process_whole`` until the card has drained, summed over
+  ``passes`` calls) and ``post_ms`` (readback, clip, per-file trimming).
 
 For the profiled runs only, each effect's ``process`` / ``process_file``
 is wrapped in a ``record_function`` span named after its kind; the package
@@ -58,8 +64,9 @@ from torch.profiler import ProfilerActivity, profile, record_function
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from aefs_tpu_torch.core.chain import Chain  # noqa: E402
 from aefs_tpu_torch.core.config import DEFAULT_PRESETS  # noqa: E402
-from aefs_tpu_torch.engine.engine import AudioEngine, process_offline  # noqa: E402
+from aefs_tpu_torch.engine.engine import AudioEngine, process_offline, render_batch  # noqa: E402
 from aefs_tpu_torch.engine.flagship import FLAGSHIP  # noqa: E402
 from aefs_tpu_torch.engine.wavio import read_wav_file  # noqa: E402
 from aefs_tpu_torch.models import EFFECT_REGISTRY, ParallelChains  # noqa: E402
@@ -216,6 +223,37 @@ def file_mode(cfg, demo, fs):
     return summarize(prof, 1, wall)
 
 
+def batch_render(cfg, demo, fs, files):
+    step = demo.shape[0] // 16
+    batch = [np.roll(demo, -i * step, axis=0) for i in range(files)]
+    render_batch(cfg, batch, fs, device="cuda")  # warm: cuBLAS, allocator
+    marks = []
+    orig = Chain.process_whole
+
+    def timed(self, *args):
+        marks.append(time.perf_counter())
+        out = orig(self, *args)
+        torch.cuda.synchronize()  # render_batch's readback waits here anyway
+        marks.append(time.perf_counter())
+        return out
+
+    torch.cuda.synchronize()
+    Chain.process_whole = timed
+    try:
+        t0 = time.perf_counter()
+        render_batch(cfg, batch, fs, device="cuda")
+        t1 = time.perf_counter()
+    finally:
+        Chain.process_whole = orig
+    with effect_spans(), _profiler() as prof:
+        render_batch(cfg, batch, fs, device="cuda")
+        torch.cuda.synchronize()
+    passes = sum(b - a for a, b in zip(marks[::2], marks[1::2]))
+    return {"files": files, "passes": len(marks) // 2, "pre_ms": 1000.0 * (marks[0] - t0),
+            "pass_ms": 1000.0 * passes, "post_ms": 1000.0 * (t1 - marks[-1]),
+            **summarize(prof, 1, 1000.0 * (t1 - t0))}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preset", choices=sorted(DEFAULT_PRESETS),
@@ -224,6 +262,8 @@ def main(argv=None):
     ap.add_argument("--pool", type=int, default=0, metavar="S",
                     help="also profile the steps of a pool of S slots")
     ap.add_argument("--grid", action="store_true", help="make that pool a grid pool")
+    ap.add_argument("--batch", type=int, default=0, metavar="F",
+                    help="also profile a render_batch of F demo-length files")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile_port.json"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -244,6 +284,8 @@ def main(argv=None):
     if args.pool:
         result["pool"] = {"slots": args.pool, "grid": args.grid,
                           **pool_steps(cfg, mono, args.blocks, args.pool, args.grid)}
+    if args.batch:
+        result["batch"] = batch_render(cfg, demo, fs, args.batch)
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))

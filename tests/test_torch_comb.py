@@ -163,3 +163,44 @@ def test_chunks_on_cpu_do_not_count_launches():
     comb_chunks(torch.zeros((8, 3000)), torch.full((8,), 0.5), torch.tensor(0.3),
                 LAGS, 1408, tuple(range(8)))
     assert comb_chunks.launches == before
+
+
+@pytest.mark.parametrize("h,h_static", [(0.05, 0.05), (0.6, None)], ids=["fir", "scan"])
+def test_plain_sums_file_axis_bitwise(h, h_static):
+    """K2's plain version over x (F, S, N), F = 3: each file bit-equal to
+    its F = 1 call; the entry returns (F, ...) sums and tails and is held
+    to JAX's per file at the kernel tests' bars."""
+    from aefs_tpu_torch.ops.kernels.comb import comb_sums_plain
+
+    rng = np.random.default_rng(9)
+    x = (0.3 * rng.standard_normal((3, 2, 5000))).astype(np.float32)
+    g = torch.from_numpy(np.linspace(0.5, 0.9, 8).astype(np.float32))
+    ht = torch.tensor(h, dtype=torch.float32)
+    ysum, d_tail = comb_sums_plain(torch.from_numpy(x), g, ht, LAGS, 1408, SIDE_OF, 2)
+    assert ysum.shape == (3, 2, 4, 1408) and d_tail.shape == (3, 3, 8, 1408)
+    for f in range(3):
+        y1, d1 = comb_sums_plain(torch.from_numpy(x[f]), g, ht, LAGS, 1408, SIDE_OF, 2)
+        assert torch.equal(ysum[f], y1) and torch.equal(d_tail[f], d1), f
+    ys, ds, c = comb_bank_file_sums(torch.from_numpy(x), LAGS, g, ht, SIDE_OF, 2,
+                                    h_static=h_static)
+    assert c == 1408 and torch.equal(ys, ysum) and torch.equal(ds, d_tail)
+    y_ref, d_ref, _ = jax_sums(jnp.asarray(x[2]), LAGS, jnp.asarray(g.numpy()), jnp.float32(h),
+                               SIDE_OF, 2, use_pallas=False, h_static=h_static)
+    assert float(np.max(np.abs(ys[2].numpy() - np.asarray(y_ref)))) < 1e-5
+    assert float(np.max(np.abs(ds[2].numpy() - np.asarray(d_ref)))) < 1e-4
+
+
+def test_plain_chunks_file_axis_bitwise():
+    """K4's plain version over x (F, S, N): each file bit-equal to its
+    F = 1 call, (F, M, B, C) outputs."""
+    from aefs_tpu_torch.ops.kernels.comb import comb_chunks_plain
+
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy((0.3 * rng.standard_normal((3, 2, 4300))).astype(np.float32))
+    g = torch.from_numpy(np.linspace(0.5, 0.9, 8).astype(np.float32))
+    h = torch.tensor(0.3)
+    y, d = comb_chunks_plain(x, g, h, LAGS, 1408, SIDE_OF)
+    assert y.shape == d.shape == (3, 4, 8, 1408)
+    for f in range(3):
+        y1, d1 = comb_chunks_plain(x[f], g, h, LAGS, 1408, SIDE_OF)
+        assert torch.equal(y[f], y1) and torch.equal(d[f], d1), f

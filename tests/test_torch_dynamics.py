@@ -252,3 +252,71 @@ def test_window_scans_match_jax_bitwise(w, n):
     assert np.array_equal(got, np.asarray(jsum(j, w, n)))
     ref = np.stack([ext[0, i: i + w].astype(np.float64).sum() for i in range(n)])
     assert np.max(np.abs(got[0] - ref)) <= 1e-6 * w
+
+
+@pytest.mark.parametrize("etype,_case,params,signal", CASES, ids=IDS)
+def test_file_mode_file_axis(etype, _case, params, signal):
+    """``process_file`` over three files on a leading file axis: each file
+    bit-equal to its own single-file call (the compressor's long scans
+    take the file axis)."""
+    from test_torch_batch import file_axis_vs_per_file
+
+    file_axis_vs_per_file(_cfg(etype, params))
+
+
+@pytest.mark.parametrize("scan", ["affine_scan_long", "maxtimes_scan_long"])
+@pytest.mark.parametrize("n", [300, 20_000])
+def test_long_scans_file_axis_bitwise(scan, n):
+    """Three streams on a leading axis, each with its own init: bit-equal
+    to one call per stream (the same operations per element)."""
+    rng = np.random.default_rng(7)
+    mult = torch.from_numpy(rng.uniform(0.5, 1.0, (3, n)).astype(np.float32))
+    add = torch.from_numpy(np.abs(rng.standard_normal((3, n))).astype(np.float32))
+    init = torch.tensor([0.1, 0.4, 0.0])
+    fn = getattr(tscan, scan)
+    got = fn(mult, add, init[:, None])
+    assert got.shape == (3, n)
+    for f in range(3):
+        assert torch.equal(got[f], fn(mult[f], add[f], init[f])), f
+
+
+@pytest.mark.parametrize("lag,n", [(1411, 9000), (1411, 400_000), (37, 50_000)],
+                         ids=["horner-rows", "toeplitz-chunks", "short-lag"])
+def test_lag_affine_scan_file_axis_bitwise(lag, n):
+    """The residue-class scan over three files on a leading axis: bit-equal
+    to one call per file, and to JAX's within -120 dBFS."""
+    rng = np.random.default_rng(8)
+    base = (0.3 * rng.standard_normal((3, n))).astype(np.float32)
+    got = tscan.lag_affine_scan(torch.from_numpy(base), 0.6, lag)
+    for f in range(3):
+        one = tscan.lag_affine_scan(torch.from_numpy(base[f]), 0.6, lag)
+        assert torch.equal(got[f], one), f
+    ref = jax.jit(jscan.lag_affine_scan, static_argnums=2)(jnp.asarray(base[0]), 0.6, lag)
+    assert err_dbfs(got[0].numpy(), ref) <= -120, err_dbfs(got[0].numpy(), ref)
+
+
+@pytest.mark.parametrize("etype", ["gate", "compressor"])
+def test_whole_files_take_the_long_scans(monkeypatch, etype):
+    """A whole file reaches the two-level scans with or without a file
+    axis (the branch depends on length alone); a 256-sample pool step
+    keeps the full-length Hillis."""
+    import importlib
+
+    mod = importlib.import_module(f"aefs_tpu_torch.models.{etype}")
+    shapes, real = [], mod.affine_scan_long
+
+    def spy(mult, add, init, *a):
+        shapes.append(tuple(add.shape))
+        return real(mult, add, init, *a)
+
+    monkeypatch.setattr(mod, "affine_scan_long", spy)
+    chain, one, tmap = build_chain([{"effect_id": "e", "type": etype, "params": {}}], FS, 4096,
+                                   channels_in=2, device="cpu")
+    targets = chain.targets(tmap)
+    x = torch.from_numpy(bursts(8192).T.copy())
+    chain.process_whole(chain.init_state(), targets, x)
+    batched = {"fx": chain.batch_state(one, 3)["fx"], "params": one["params"]}
+    chain.process_whole(batched, targets, x.expand(3, 2, 8192))
+    chain.process_block(chain.batch_state(one, 3), targets,
+                        x[:, :N].expand(3, 2, N).contiguous())
+    assert shapes == [(8192,), (3, 8192)]

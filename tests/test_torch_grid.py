@@ -318,3 +318,23 @@ def test_canonical_topology_grid_matches_jax(name):
     assert canonical_topology(cfg, grid=True) == jax_canonical_topology(cfg, grid=True)
     baked = "__grid_semitones" in canonical_topology(cfg, grid=True)[0]
     assert baked == (name != "oct-7")
+
+
+@pytest.mark.parametrize("e", [-2, -1, 0, 1, 2])
+def test_file_taps_file_axis_and_jax(e):
+    """``octaver_taps_pow2`` (whole file from fresh phase, one gather per
+    tap) over three files on a leading axis: bit-equal to one call per
+    file, and within -120 dBFS of JAX's per-class slices (phasors exact)."""
+    rng = np.random.default_rng(11 + e)
+    n = 3 * 4096 + 100
+    hist = rng.standard_normal((3, SIZE)).astype(np.float32)
+    x = rng.standard_normal((3, n)).astype(np.float32)
+    got = gridtaps.octaver_taps_pow2(torch.from_numpy(hist), torch.from_numpy(x), e)
+    for f in range(3):
+        one = gridtaps.octaver_taps_pow2(torch.from_numpy(hist[f]), torch.from_numpy(x[f]), e)
+        assert all(torch.equal(a[f], b) for a, b in zip(got, one)), f
+    want = jgrid.octaver_taps_pow2(jnp.asarray(hist[0]), jnp.asarray(x[0]), e)
+    for a, b in zip(got[:2], want[:2]):
+        assert err_dbfs(a[0].numpy(), b) <= -120, err_dbfs(a[0].numpy(), b)
+    for a, b in zip(got[2:], want[2:]):
+        np.testing.assert_array_equal(a[0].numpy(), np.asarray(b))

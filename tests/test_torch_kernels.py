@@ -614,7 +614,7 @@ def test_step_kernel_slot_grid_bitwise(dev, kind, slots):
 
 def test_step_kernels_reject_bad_slot_operands(dev):
     """A param or state scalar whose slot dims differ from x's is refused
-    before any launch."""
+    before any launch (a 0-dim param is shared by every slot)."""
     from aefs_tpu_torch.models.octaver import Octaver
     from aefs_tpu_torch.ops.kernels.resample import chorus_step, octaver_step
 
@@ -629,13 +629,13 @@ def test_step_kernels_reject_bad_slot_operands(dev):
     bad_oct = [
         ({**st, "hist": st["hist"][:3]}, p, x),
         ({**st, "n_abs": st["n_abs"][0]}, p, x),
-        (st, {**p, "mix": torch.tensor(0.4, device=dev)}, x),
+        (st, {**p, "mix": torch.full((3,), 0.4, device=dev)}, x),
         (st, {**p, "semitones": torch.full((8,), -12.0, device=dev)[::2]}, x),  # strided
     ]
     bad_cho = [
         ({**cst, "hist": cst["hist"][:, :1]}, cp, x),
         ({**cst, "ph_hi": cst["ph_hi"][:2]}, cp, x),
-        (cst, {**cp, "rate_hz": torch.tensor(0.6, device=dev)}, x),
+        (cst, {**cp, "rate_hz": torch.full((5,), 0.6, device=dev)}, x),
     ]
     before = (octaver_step.launches, chorus_step.launches)
     for args in bad_oct:
@@ -669,3 +669,111 @@ def test_pool_step_launches_each_step_kernel_once(dev):
                 err = float(np.max(np.abs(outs["cuda"][b][s].astype(np.float64)
                                           - outs["cpu"][b][s])))
                 assert err == 0.0 or 20.0 * np.log10(err) <= -90.0, (b, s, err)
+
+
+def _file_axis_comb_operands(dev, files, n, h, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((0.3 * rng.standard_normal((files, 2, n))).astype(np.float32)).to(dev)
+    g = torch.from_numpy(np.linspace(0.5, 0.9, 8).astype(np.float32)).to(dev)
+    return x, g, torch.tensor(h, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("files", [1, 3, 16])
+@pytest.mark.parametrize("h,h_static", [(0.05, 0.05), (0.6, None)], ids=["fir", "scan"])
+def test_comb_sums_file_grid(dev, files, h, h_static):
+    """K2 with a file axis, x (F, 2, N): one launch for all F files, each
+    file bit-equal to an F = 1 launch on its rows, and within K2's bars of
+    the plain version on that file (whose damping is the exact propagator,
+    not the kernel's FIR or scan); the plain version over F bit-equal to
+    its per-file calls."""
+    from aefs_tpu_torch.ops.kernels.comb import comb_sums, comb_sums_plain
+
+    x, g, ht = _file_axis_comb_operands(dev, files, 20000, h, seed=files)
+    before = comb_sums.launches
+    ysum, d_tail = comb_sums(x, g, ht, LAGS8, 1408, REVERB_SIDES, 2, h_static)
+    torch.cuda.synchronize()
+    assert comb_sums.launches == before + 1
+    assert ysum.shape == (files, 2, 15, 1408) and d_tail.shape == (files, 3, 8, 1408)
+    y_plain, d_plain = comb_sums_plain(x, g, ht, LAGS8, 1408, REVERB_SIDES, 2)
+    for f in range(files):
+        y1, d1 = comb_sums(x[f], g, ht, LAGS8, 1408, REVERB_SIDES, 2, h_static)
+        assert torch.equal(ysum[f], y1) and torch.equal(d_tail[f], d1), f
+        yp, dp = comb_sums_plain(x[f], g, ht, LAGS8, 1408, REVERB_SIDES, 2)
+        assert torch.equal(y_plain[f], yp) and torch.equal(d_plain[f], dp), f
+        assert float((ysum[f] - yp).abs().max()) < 1e-5
+        assert float((d_tail[f] - dp).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("files", [1, 3, 16])
+def test_comb_chunks_file_grid(dev, files):
+    """K4 shares K2's launcher and its file grid: each file of one launch
+    bit-equal to an F = 1 launch, within the bars of the plain version."""
+    from aefs_tpu_torch.ops.kernels.comb import comb_chunks, comb_chunks_plain
+
+    x, g, ht = _file_axis_comb_operands(dev, files, 4300, 0.3, seed=20 + files)
+    before = comb_chunks.launches
+    y, d = comb_chunks(x, g, ht, LAGS8, 1408, REVERB_SIDES)
+    torch.cuda.synchronize()
+    assert comb_chunks.launches == before + 1 and y.shape == d.shape == (files, 4, 8, 1408)
+    for f in range(files):
+        y1, d1 = comb_chunks(x[f], g, ht, LAGS8, 1408, REVERB_SIDES)
+        assert torch.equal(y[f], y1) and torch.equal(d[f], d1), f
+        yp, dp = comb_chunks_plain(x[f], g, ht, LAGS8, 1408, REVERB_SIDES)
+        assert float((y[f] - yp).abs().max()) < 1e-5
+        assert float((d[f] - dp).abs().max()) < 1e-4
+
+
+def test_comb_kernels_reject_bad_file_operands(dev):
+    """No file, a fourth axis, more files than the grid takes and a strided
+    file axis raise before any launch."""
+    from aefs_tpu_torch.ops.kernels.comb import comb_chunks, comb_sums
+
+    _, g, ht = _file_axis_comb_operands(dev, 1, 10, 0.3, seed=0)
+    bad = [torch.zeros((0, 2, 5000), device=dev), torch.zeros((2, 2, 2, 5000), device=dev),
+           torch.zeros((65536, 2, 1), device=dev), torch.zeros((6, 2, 5000), device=dev)[::2]]
+    before = (comb_sums.launches, comb_chunks.launches)
+    for x in bad:
+        with pytest.raises(ValueError):
+            comb_sums(x, g, ht, LAGS8, 1408, REVERB_SIDES, 2, 0.05)
+        with pytest.raises(ValueError):
+            comb_chunks(x, g, ht, LAGS8, 1408, REVERB_SIDES)
+    assert (comb_sums.launches, comb_chunks.launches) == before
+
+
+@pytest.mark.parametrize("kind", ["octaver", "chorus"])
+def test_step_kernels_file_length_slots_bitwise(dev, kind):
+    """K1 and K3 as a batched render runs them: three files as slots at the
+    demo's length (892,800), from fresh state, params 0-dim and shared: one
+    launch, each slot bit-equal to the plain step and to an S = 1 launch."""
+    from aefs_tpu_torch.models.chorus import Chorus
+    from aefs_tpu_torch.models.octaver import Octaver
+    from aefs_tpu_torch.ops.kernels.resample import (
+        chorus_step, chorus_step_plain, octaver_step, octaver_step_plain)
+
+    rng = np.random.default_rng(30)
+    n, s = 892800, 3
+    if kind == "octaver":
+        one = Octaver(48000, 4096, device=dev).init_state()
+        p = {"semitones": torch.tensor(-5.0, device=dev), "mix": torch.tensor(0.4, device=dev)}
+        kern, plain = octaver_step, octaver_step_plain
+    else:
+        one = Chorus(48000, 4096, device=dev).init_state()
+        p = {k: torch.tensor(v, device=dev) for k, v in (("rate_hz", 0.6), ("depth_ms", 4.0),
+             ("base_ms", 14.0), ("mix", 0.5), ("spread", 0.25))}
+        kern = lambda st, pp, xx: chorus_step(st, pp, xx, 48000)  # noqa: E731
+        plain = lambda st, pp, xx: chorus_step_plain(st, pp, xx, 48000)  # noqa: E731
+    st = {k: v.expand((s,) + v.shape).clone() for k, v in one.items()}
+    x = _noise(rng, (s, 2, n), dev)
+    counter = octaver_step if kind == "octaver" else chorus_step
+    before = counter.launches
+    got = kern(st, p, x)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref = plain(st, {k: v.expand(s).contiguous() for k, v in p.items()}, x)
+    assert torch.equal(got[1], ref[1])
+    for k in ref[0]:
+        assert got[0][k].shape == ref[0][k].shape and torch.equal(got[0][k], ref[0][k]), k
+    for f in range(s):
+        one_st, one_y = kern({k: v[f] for k, v in st.items()}, p, x[f])
+        assert torch.equal(got[1][f], one_y)
+        assert all(torch.equal(got[0][k][f], one_st[k]) for k in one_st)

@@ -228,3 +228,14 @@ def test_gridtaps_geometry_matches_jax():
             for n in (128, 256, 4096):
                 assert (tg.pow2_stream_geometry_ok(size, e, n)
                         == jg.pow2_stream_geometry_ok(size, e, n))
+
+
+@pytest.mark.parametrize("etype,_preset,params", FILE_CASES, ids=IDS + ["octaver-plus7"])
+def test_file_mode_file_axis(etype, _preset, params):
+    """``process_file`` over three files on a leading file axis (a batched
+    render): each file bit-equal to its own single-file call, output and
+    state (the delay's ring and shared row, the reverb's K2 tail, the
+    octaver's exact grid and, at +7, K1's slot grid)."""
+    from test_torch_batch import file_axis_vs_per_file
+
+    file_axis_vs_per_file([{"effect_id": "e", "type": etype, "params": params}])

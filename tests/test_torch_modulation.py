@@ -262,3 +262,13 @@ def test_modulation_type_is_ported(etype):
     assert etype in EFFECT_REGISTRY
     chain, _, _ = build_chain(_cfg(etype, {}), FS, N, device="cpu")
     assert chain.effects[0][1].kind == etype
+
+
+@pytest.mark.parametrize("etype,_case,params,signal", CASES, ids=IDS)
+def test_file_mode_file_axis(etype, _case, params, signal):
+    """``process_file`` over three files on a leading file axis: each file
+    bit-equal to its own single-file call (the flanger's chunk loop once
+    for all files, the chorus's K3 slot grid with S = F)."""
+    from test_torch_batch import file_axis_vs_per_file
+
+    file_axis_vs_per_file(_cfg(etype, params), frames=2 * 4096)

@@ -165,3 +165,13 @@ def test_bare_crossover_sums_allpass_flat(xover):
     band = (f > 20.0) & (f < 20000.0)
     err = float(np.max(np.abs(np.abs(h[band]) - 1.0)))
     assert err < 2e-3, err
+
+
+@pytest.mark.parametrize("name", ["parallel", "Multiband Master"])
+def test_file_mode_file_axis(name):
+    """The container's whole-file path over three files on a leading file
+    axis (its gains 0-dim, shared): each file bit-equal to its own call."""
+    from test_torch_batch import file_axis_vs_per_file
+
+    cfg = [copy.deepcopy(PARALLEL)] if name == "parallel" else DEFAULT_PRESETS[name]
+    file_axis_vs_per_file(cfg)

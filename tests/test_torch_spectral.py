@@ -248,3 +248,16 @@ def test_jax_stream_continues_in_the_port(etype):
                                   x[k * N:])
     assert err_dbfs(got, ref) <= -90, err_dbfs(got, ref)
     assert_states_close(state_to_numpy(st), jax.tree.map(np.asarray, jst2))
+
+
+@pytest.mark.parametrize("etype,params", [
+    ("convreverb", CONV), ("convreverb", {**CONV, "ir_seconds": 0.02}),
+    ("spectral", SPECTRAL[1]),
+], ids=["convreverb", "convreverb-one-hop-ir", "spectral"])
+def test_file_mode_file_axis(etype, params):
+    """``process_file`` over three files on a leading file axis: each file
+    bit-equal to its own single-file call (the convolution's IR spectrum
+    computed once for all files, its rebuilt overlap-save state per file)."""
+    from test_torch_batch import file_axis_vs_per_file
+
+    file_axis_vs_per_file(_cfg(etype, params))

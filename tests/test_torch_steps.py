@@ -181,3 +181,34 @@ def test_step_kernel_constants_match_dsphase():
     two_pi = np.float32(2.0 * math.pi)
     assert "(float)(2.0 * 3.14159265358979323846)" in src
     assert float(np.float32(2.0 * 3.14159265358979323846)) == float(two_pi)
+
+
+@pytest.mark.parametrize("kind", ["octaver", "chorus"])
+def test_steps_take_shared_params_over_slots(kind):
+    """A batched file render's files reach K1 and K3 as slots with 0-dim
+    params shared by all of them: the wrappers repeat each param per slot,
+    so the outputs and every state leaf (shaped (S,) per slot) are those
+    of the same step with the params given per slot, bit for bit."""
+    from aefs_tpu_torch.ops.kernels.resample import chorus_step, octaver_step
+
+    rng = np.random.default_rng(12)
+    s, n = 3, 3000
+    if kind == "octaver":
+        one = Octaver(FS, n).init_state()
+        p = {"semitones": torch.tensor(-5.0), "mix": torch.tensor(0.4)}
+        step = octaver_step
+    else:
+        one = Chorus(FS, n).init_state()
+        p = {k: torch.tensor(v) for k, v in (("rate_hz", 0.6), ("depth_ms", 4.0),
+                                             ("base_ms", 14.0), ("mix", 0.5), ("spread", 0.25))}
+        step = lambda st, pp, xx: chorus_step(st, pp, xx, FS)  # noqa: E731
+    state = {k: v.expand((s,) + v.shape).clone() for k, v in one.items()}
+    state["hist"] = torch.from_numpy(
+        (0.3 * rng.standard_normal(state["hist"].shape)).astype(np.float32))
+    x = torch.from_numpy((0.3 * rng.standard_normal((s, 2, n))).astype(np.float32))
+    st_shared, y_shared = step(state, p, x)
+    st_slots, y_slots = step(state, {k: v.expand(s).clone() for k, v in p.items()}, x)
+    assert torch.equal(y_shared, y_slots)
+    for k, v in st_slots.items():
+        assert st_shared[k].shape == v.shape and v.shape[0] == s, k
+        assert torch.equal(st_shared[k], v), k
