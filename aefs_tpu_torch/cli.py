@@ -31,8 +31,8 @@ def main(argv=None):
                     help="bulk mode: render every input WAV through the chain "
                          "(one chain, a fresh state per file); outputs land in OUT_DIR")
     ap.add_argument("--shard", action="store_true",
-                    help="with --batch: spread the files over the visible cards "
-                         "(one card: the same render)")
+                    help="with --batch: distribute the batch over all "
+                         "visible devices (data-parallel rendering)")
     ap.add_argument("--preset", help="factory preset name")
     ap.add_argument("--config", help="JSON chain-config file")
     ap.add_argument("--list-presets", action="store_true")

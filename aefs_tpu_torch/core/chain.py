@@ -14,7 +14,9 @@ The serving pool steps many streams at once through the same
 ``process_block`` with a leading slot axis written out (JAX vmaps it):
 x (S, ci, N), every state leaf (S, ...) but the lockstep counters, and
 targets (S,).  ``state_axes``, ``batch_state`` and ``graft_slot_state``
-build and edit such a batched state.
+build and edit such a batched state; ``split_slots`` and ``join_slots``
+lay it out over a mesh's data shards (contiguous slot ranges, as JAX's
+``P("data")`` does) and back.
 """
 
 from __future__ import annotations
@@ -24,6 +26,37 @@ import torch
 
 from aefs_tpu_torch.core.params import smooth_all
 from aefs_tpu_torch.models.base import tree_map
+from aefs_tpu_torch.utils.platform import same_device
+
+
+def slot_ranges(n_slots: int, n_shards: int):
+    """The contiguous slot range [lo, hi) of each of ``n_shards`` data
+    shards over ``n_slots`` slots (shard i holds i*S/n .. (i+1)*S/n - 1)."""
+    span = n_slots // n_shards
+    return [(i * span, (i + 1) * span) for i in range(n_shards)]
+
+
+def _map_axes(f, axes, *trees):
+    """``f(axis, *leaves)`` over parallel trees; ``axes`` is a tree of slot
+    axes whose int or None leaves also stand for whole subtrees."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: _map_axes(f, axes[k] if isinstance(axes, dict) else axes,
+                             *(u[k] for u in trees)) for k in t}
+    if isinstance(t, (tuple, list)):
+        return type(t)(_map_axes(f, axes[i] if isinstance(axes, (tuple, list)) else axes,
+                                 *(u[i] for u in trees)) for i in range(len(t)))
+    return f(axes, *trees)
+
+
+def _slot_count(axes, tree):
+    """The slot count of a batched tree: the size of its first slot axis."""
+    sizes = []
+    _map_axes(lambda ax, t: sizes.append(t.shape[ax]) if ax is not None and t.dim() else None,
+              axes, tree)
+    if not sizes:
+        raise ValueError("the tree has no leaf with a slot axis")
+    return sizes[0]
 
 
 class Chain:
@@ -80,6 +113,44 @@ class Chain:
         fx = tuple(model.map_state(put, lambda b, s: b, bst, sst)
                    for (eid, model), bst, sst in zip(self.effects, batched["fx"], single["fx"]))
         return {"fx": fx, "params": tree_map(put, batched["params"], single["params"])}
+
+    def split_slots(self, batched, devices, axes=None):
+        """A batched state (or, with ``axes=0``, a targets tree) as one tree
+        per data shard: shard i holds slot range i of ``len(devices)``
+        (``slot_ranges``) on ``devices[i]``.  Leaves without a slot axis
+        (LOCKSTEP_STATE, 0-dim shared targets) are copied to every shard:
+        they advance alike there.  Every leaf is a copy."""
+        axes = self.state_axes() if axes is None else axes
+        n_slots = _slot_count(axes, batched)
+
+        def take(lo, hi, dev):
+            def leaf(ax, t):
+                if ax is None or t.dim() == 0:
+                    return t.to(dev, copy=True)
+                return t.narrow(ax, lo, hi - lo).to(dev, copy=True)
+            return leaf
+
+        return [_map_axes(take(lo, hi, torch.device(dev)), axes, batched)
+                for (lo, hi), dev in zip(slot_ranges(n_slots, len(devices)), devices)]
+
+    def join_slots(self, shards, device, axes=None):
+        """``split_slots``'s inverse: one tree on ``device`` with every
+        shard's slots in order; a leaf without a slot axis is shard 0's."""
+        axes = self.state_axes() if axes is None else axes
+
+        def leaf(ax, *ts):
+            if ax is None or ts[0].dim() == 0:
+                return ts[0].to(device, copy=True)
+            return torch.cat([t.to(device) for t in ts], ax)
+
+        return _map_axes(leaf, axes, *shards)
+
+    def on_device(self, device):
+        """This chain with its constants on ``device``: ``self`` where it
+        lives there already, else ``build_chain`` of the same arguments."""
+        if same_device(device, self.device):
+            return self
+        return build_chain(*self.build_args, device=device)[0]
 
     def targets(self, per_effect: dict):
         """Targets tree (tuple of dicts of 0-dim tensors, chain order) from a
@@ -214,6 +285,9 @@ def build_chain(effects_config, fs, blocksize, channels_in=1, channels_out=2,
     # its own config (save_session): the engine's last_chain_config may
     # already name a newer chain.
     chain.source_config = effects_config
+    # What ``on_device`` rebuilds a shard's chain from.
+    chain.build_args = (effects_config, fs, blocksize, channels_in, channels_out,
+                        static_overrides)
     state = chain.init_state(configs)
     targets_map = {
         eid: {k: float(v) for k, v in configs.get(eid, {}).items()}

@@ -353,10 +353,18 @@ int launch_bank(cudaStream_t stream, const float* x, long long x_file, int n, in
 static int launch_comb(const float* x, int x_rows, int n, int files, const float* g,
                        const float* h, const float* fir_w, int n_taps,
                        const int* lags, const int* side_of, int b, int c, int m,
-                       float* y_out, float* d_out, float* d_tail, cudaStream_t stream) {
+                       float* y_out, float* d_out, float* d_tail, int device,
+                       cudaStream_t stream) {
   if (b < 1 || b > AEFS_MAX_COMBS || n_taps < 0 || n_taps > AEFS_FIR_PAD || c < 1 ||
       m < 1 || files < 1 || files > 65535 || y_out == nullptr)
     return (int)cudaErrorInvalidValue;
+  // The library carries its own CUDA runtime, whose current device is its
+  // own: make the operands' card current before launching there.
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)dev_err;
+  }
   const long long x_file = (long long)x_rows * n;
   CombGeom geom = {};
   geom.b = b;
@@ -399,10 +407,10 @@ extern "C" int aefs_comb_sums(const float* x, int x_rows, int n, int files,
                               const float* g, const float* h, const float* fir_w,
                               int n_taps, const int* lags, const int* side_of, int b,
                               int c, int m, int n_sides, float* y_scratch, float* ysum,
-                              float* d_tail, cudaStream_t stream) {
+                              float* d_tail, int device, cudaStream_t stream) {
   if (n_sides < 1) return (int)cudaErrorInvalidValue;
   int err = launch_comb(x, x_rows, n, files, g, h, fir_w, n_taps, lags, side_of, b, c, m,
-                        y_scratch, nullptr, d_tail, stream);
+                        y_scratch, nullptr, d_tail, device, stream);
   if (err != 0) return err;
   CombGeom geom = {};
   geom.b = b;
@@ -422,7 +430,7 @@ extern "C" int aefs_comb_sums(const float* x, int x_rows, int n, int files,
 extern "C" int aefs_comb_chunks(const float* x, int x_rows, int n, int files,
                                 const float* g, const float* h, const int* lags,
                                 const int* side_of, int b, int c, int m, float* y_out,
-                                float* d_out, cudaStream_t stream) {
+                                float* d_out, int device, cudaStream_t stream) {
   return launch_comb(x, x_rows, n, files, g, h, nullptr, 0, lags, side_of, b, c, m, y_out,
-                     d_out, nullptr, stream);
+                     d_out, nullptr, device, stream);
 }

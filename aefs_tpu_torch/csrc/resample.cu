@@ -341,6 +341,16 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return e;
 }
 
+// Make ``device`` this library's current device before a launch.  The
+// library carries its own CUDA runtime, whose current device is its own:
+// without this a launch for another card than the one this runtime first
+// saw could go to the wrong context.
+cudaError_t use_device(int device) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) cudaGetLastError();
+  return e;
+}
+
 int launched() {
   const cudaError_t e = cudaGetLastError();  // returns and clears
   return (int)e;
@@ -352,17 +362,19 @@ int launched() {
 // c in {1, 2}; hist (S, size); semitones, mix, base_hi, base_lo,
 // semi_prev, step_hi, step_lo (S,) float32; n_abs (S,) int32; out
 // (S * (c*n + size + 6)) float32.  S = 1 is the single-stream step.
-// Launches on ``stream``; returns the CUDA error code (0 on success).
+// Launches on ``stream`` of ``device``; returns the CUDA error code (0 on
+// success).
 extern "C" int aefs_octaver_step(const float* x, long long ldxs, long long ldx,
                                  int c, int n, int slots, const float* hist,
                                  int size, const float* semitones,
                                  const float* mix, const int* n_abs,
                                  const float* base_hi, const float* base_lo,
                                  const float* semi_prev, const float* step_hi,
-                                 const float* step_lo, float* out,
+                                 const float* step_lo, float* out, int device,
                                  cudaStream_t stream) {
   if (c < 1 || c > 2 || n < 1 || size < 4 || slots < 1 || slots > 65535)
     return (int)cudaErrorInvalidValue;
+  if (const cudaError_t d = use_device(device)) return (int)d;
   const size_t smem = (size_t)(kTile + size) * sizeof(float);
   const cudaError_t e = allow_smem(octaver_step_kernel, smem);
   if (e != cudaSuccess) return (int)e;
@@ -376,16 +388,18 @@ extern "C" int aefs_octaver_step(const float* x, long long ldxs, long long ldx,
 // Kernel K3.  x (S, c, n) float32, slots ldxs apart and rows ldx apart;
 // hist (S, c, hl); rate, depth, base, mix, spread, ph_hi, ph_lo (S,)
 // float32; out (S * (c*n + c*hl + 2)) float32.  S = 1 is the
-// single-stream step.  Launches on ``stream``; returns the CUDA error code.
+// single-stream step.  Launches on ``stream`` of ``device``; returns the
+// CUDA error code.
 extern "C" int aefs_chorus_step(const float* x, long long ldxs, long long ldx,
                                 int c, int n, int slots, const float* hist,
                                 int hl, float fs, const float* rate,
                                 const float* depth, const float* base,
                                 const float* mix, const float* spread,
                                 const float* ph_hi, const float* ph_lo,
-                                float* out, cudaStream_t stream) {
+                                float* out, int device, cudaStream_t stream) {
   if (c < 1 || slots < 1 || (long long)c * slots > 65535 || n < 1 || hl < 4)
     return (int)cudaErrorInvalidValue;
+  if (const cudaError_t d = use_device(device)) return (int)d;
   const size_t smem = (size_t)(kTile + hl) * sizeof(float);
   const cudaError_t e = allow_smem(chorus_step_kernel, smem);
   if (e != cudaSuccess) return (int)e;

@@ -9,7 +9,9 @@ Format, shared with the JAX package: a directory with ``session.json``
 leaves as ``leaf_{i}``, plus any uploaded IRs and learned noise profiles).
 The leaves are stored in ``jax.tree.flatten``'s order
 (``core/convert.py:flatten_like_jax``), so a session saved by either
-package resumes in the other.
+package resumes in the other.  A sharded state (``parallel/mesh.py``'s
+``ShardedState``) is saved as the one slot-axis tree its shards join into,
+and a rebuild onto a sharded template is split as the template is.
 """
 
 from __future__ import annotations
@@ -111,7 +113,10 @@ def save_session(path: str, chain_config, targets_map: dict, state,
     at any instant leaves the previous complete checkpoint or the new one,
     never a torn mix.  Saves to one directory serialize on a process-local
     lock; temp files are mkstemp-unique.  ``fs`` records the session rate
-    so loads at another rate can remap the profiles."""
+    so loads at another rate can remap the profiles.  A sharded ``state``
+    is saved joined."""
+    if hasattr(state, "join"):
+        state = state.join()
     with _dir_lock(path):
         _save_session_locked(path, chain_config, targets_map, state,
                              custom_irs, noise_profiles, fs)
@@ -194,7 +199,8 @@ def load_session(path: str):
 
     ``rebuild_state_fn(template_state)`` grafts the saved leaves onto a
     freshly built chain's state tree, checking the leaf count and every
-    shape, and puts each leaf on its template leaf's device with its dtype.
+    shape, and puts each leaf on its template leaf's device with its dtype;
+    a sharded template gives a state sharded as it is.
     ``custom_irs`` maps effect_id -> (ir, fs) (rebuild with
     ``ir_static_overrides`` or the state will not fit); ``noise_profiles``
     maps effect_id -> the learned per-bin floor (rebuild with
@@ -219,6 +225,8 @@ def load_session(path: str):
     }
 
     def rebuild_state(template_state):
+        if hasattr(template_state, "resplit"):
+            return template_state.resplit(rebuild_state(template_state.join()))
         t_leaves = flatten_like_jax(template_state)
         if len(t_leaves) != len(leaves):
             raise ValueError(

@@ -92,22 +92,28 @@ def render_batch(chain_config, audios, fs, superblock=FILE_SUPERBLOCK,
     files cost the kernel launches of one (K2 once, with a file grid).
     The params stay 0-dim and shared: every file has the same targets and
     fresh state, so their smoothed values are the same (JAX batches them
-    too, with equal values).  ``shard=True`` with one visible card renders
-    exactly as ``shard=False`` (as JAX does on one device); the port's mesh
-    (``parallel/mesh.py``) covers one card, so several cards raise.
+    too, with equal values).  ``shard=True`` splits the file axis over
+    every visible device of ``device``'s kind
+    (``parallel/mesh.py:visible_devices``): the batch is padded with silent
+    one-superblock entries to a multiple of the device count (their outputs
+    are dropped), and each device runs one ``process_whole`` over its F/n
+    files at the common length, launched in turn, so K2 runs once per
+    device.  With one device it renders exactly as ``shard=False``.
 
     audios: list of (frames_i,) or (frames_i, ch) arrays, one sample rate.
     Returns a list of (frames_i, 2) float32 clipped outputs.
     """
+    from aefs_tpu_torch.parallel import mesh
+
     device = require_device(device)
-    if shard and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "render_batch(shard=True) over more than one card is not supported: "
-            "the mesh of aefs_tpu_torch covers one card")
+    devices = mesh.visible_devices(device) if shard else [device]
     monos = []
     for a in audios:
         a = np.asarray(a, np.float32)
         monos.append(a.mean(axis=1) if a.ndim > 1 else a)
+    n_real = len(monos)
+    # Any file count shards: silent entries up to a multiple of the devices.
+    monos += [np.zeros((superblock,), np.float32)] * ((-n_real) % len(devices))
     length = max(m.shape[0] for m in monos)
     lp = -(-length // superblock) * superblock
     x = np.zeros((len(monos), 1, lp), np.float32)
@@ -116,15 +122,21 @@ def render_batch(chain_config, audios, fs, superblock=FILE_SUPERBLOCK,
 
     chain, one, targets_map = build_chain(
         chain_config, fs, superblock, channels_in=1, channels_out=2,
-        static_overrides=file_static_overrides(chain_config), device=device,
+        static_overrides=file_static_overrides(chain_config), device=devices[0],
     )
-    state = {"fx": chain.batch_state(one, len(monos))["fx"], "params": one["params"]}
-    _, y = chain.process_whole(state, chain.targets(targets_map),
-                               torch.from_numpy(x).to(device))
+    span = len(monos) // len(devices)
+    ys = []
+    for i, dev in enumerate(devices):
+        part = chain.on_device(dev)
+        st = one if part is chain else part.init_state()
+        state = {"fx": part.batch_state(st, span)["fx"], "params": st["params"]}
+        _, y = part.process_whole(state, part.targets(targets_map),
+                                  torch.from_numpy(x[i * span:(i + 1) * span]).to(dev))
+        ys.append(y)
     # Read back file by file: a (2, Lp) buffer is reused by the host's
     # allocator, where one (F, 2, Lp) array is fresh pages every call.
-    return [np.clip(y[i].cpu().numpy()[:, : m.shape[0]], -1.0, 1.0).T.copy()
-            for i, m in enumerate(monos)]
+    return [np.clip(ys[i // span][i % span].cpu().numpy()[:, : m.shape[0]], -1.0, 1.0).T.copy()
+            for i, m in enumerate(monos[:n_real])]
 
 
 class _Pipeline:
@@ -148,7 +160,7 @@ class _Pipeline:
         self.next ^= 1
         buf.copy_(y, non_blocking=True)
         ev = torch.cuda.Event()
-        ev.record()
+        ev.record(torch.cuda.current_stream(y.device))
         return buf, ev
 
     def collect(self, handle):

@@ -37,6 +37,22 @@ def tree_map(f, tree, *rest):
     return f(tree, *rest)
 
 
+class ModelShards:
+    """A state leaf split over the mesh's model axis (parallel/mesh.py):
+    ``pieces[j]`` lives on model device j and holds the j-th equal part of
+    the leaf's ``axis``.  Only a sharded runner's states hold one; the
+    effects whose leaves the mesh splits (the reverb's comb bank, the
+    convolution reverb's partition history) run each part on its device."""
+
+    def __init__(self, pieces, axis: int):
+        self.pieces = tuple(pieces)
+        self.axis = int(axis)
+
+    def join(self, device):
+        """The whole leaf on ``device``, parts in order."""
+        return torch.cat([p.to(device) for p in self.pieces], self.axis)
+
+
 def ms_to_samples(fs, ms):
     """(fs * ms / 1000) truncated to int32, for a 0-dim float32 ``ms``.
     The division is by a tensor: CUDA turns division by a Python scalar

@@ -8,7 +8,10 @@ spectra form a frequency-domain delay line, and each hop costs one rfft, a
 (``ir``: (C, L) or (L,)) or a synthetic exponentially-decaying stereo noise
 IR of ``ir_seconds`` (fixed seed, decorrelated channels).  File mode
 (``process_file``) is one full-length FFT convolution that rebuilds the
-blockwise end-of-file state exactly.
+blockwise end-of-file state exactly.  On a mesh with a model axis
+(parallel/mesh.py) ``spec_hist`` arrives split over its partition axis
+(``ModelShards``), and each model device does its partitions' MAC
+(``ops/fftops.py:partitioned_fft_conv_split``).
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel, lead
-from aefs_tpu_torch.ops.fftops import partition_ir, partitioned_fft_conv, rfft_last
+from aefs_tpu_torch.models.base import EffectModel, ModelShards, lead
+from aefs_tpu_torch.ops.fftops import (
+    partition_ir, partitioned_fft_conv, partitioned_fft_conv_split, rfft_last)
 
 
 def synthetic_ir(fs: int, seconds: float, channels: int = 2, seed: int = 1234):
@@ -67,6 +71,7 @@ class ConvReverb(EffectModel):
         self.partitions = spectra.shape[2]
         # Time-domain IR kept host-side for the whole-file path.
         self._ir_time = ir
+        self._ir_parts = {}  # (device, lo, hi) -> partition spectra there
 
     def init_state(self):
         c = self.channels
@@ -80,9 +85,22 @@ class ConvReverb(EffectModel):
         return torch.clamp(lead(p["mix_dry"], 2) * x + lead(p["mix_wet"], 2) * wet, -1.0, 1.0)
 
     def process(self, state, p, x):
+        hist = state["spec_hist"]
+        if isinstance(hist, ModelShards):
+            wet, parts, in_tail = partitioned_fft_conv_split(
+                hist.pieces, state["in_tail"], x, self.ir_spectra, self.hop, self._ir_on)
+            return ({"spec_hist": ModelShards(parts, hist.axis), "in_tail": in_tail},
+                    self._mix(p, x, wet))
         wet, spec_hist, in_tail = partitioned_fft_conv(
-            state["spec_hist"], state["in_tail"], x, self.ir_spectra, self.hop)
+            hist, state["in_tail"], x, self.ir_spectra, self.hop)
         return {"spec_hist": spec_hist, "in_tail": in_tail}, self._mix(p, x, wet)
+
+    def _ir_on(self, device, lo, hi):
+        """Partition spectra [lo, hi) on ``device``, kept after first use."""
+        key = (str(device), lo, hi)
+        if key not in self._ir_parts:
+            self._ir_parts[key] = self.ir_spectra[..., lo:hi, :].contiguous().to(device)
+        return self._ir_parts[key]
 
     def process_file(self, state, p, x):
         """One length-nfft FFT convolution, nfft = next_pow2(N + L), with the

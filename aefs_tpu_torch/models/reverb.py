@@ -6,7 +6,10 @@ with hard clip.  L/R decorrelate by +-0.3 ms lag jitter; per-comb feedback
 g = 10^(-3 L / fs / rt60).  Streaming runs both sides' banks as one
 8-comb static-window solve (with a leading slot axis in the pool); file
 mode runs the whole-file comb-sums kernel (K2, ops/kernels/comb.py) and
-rebuilds the final ring state from its damped tail.
+rebuilds the final ring state from its damped tail.  On a mesh with a model
+axis (parallel/mesh.py) the streaming bank's ``combs``/``lps`` arrive split
+over their comb axis (``ModelShards``): each model device steps its combs
+and the per-side partial sums are added on the stream's device.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from aefs_tpu_torch.core.params import ParamSpec
-from aefs_tpu_torch.models.base import EffectModel, lead, ms_to_samples
+from aefs_tpu_torch.models.base import EffectModel, ModelShards, lead, ms_to_samples
 from aefs_tpu_torch.ops.ringbuf import (
     allpass_block,
     comb_bank_block,
@@ -107,27 +110,63 @@ class Reverb(EffectModel):
 
     def process(self, state, p, x):
         pre_out, new_pre, g_all = self._pre_and_gains(state, p, x)
+        if isinstance(state["combs"], ModelShards):
+            sums, combs, lps = self._comb_bank_model_split(state, p, pre_out, g_all)
+            return self._diffuse_and_mix(state, p, x, [sums[..., 0:1, :], sums[..., 1:2, :]],
+                                         new_pre, combs, lps)
         b = self.n_combs
         lead_shape = x.shape[:-2]  # the pool's slot axis, if any
         xb = torch.repeat_interleave(pre_out, b, -2)  # (..., 2B, N) side-major
         static_lags = tuple(self.comb_lags[0] + self.comb_lags[1])
         hists = state["combs"].reshape(*lead_shape, 2 * b, -1)
         lps = state["lps"].reshape(*lead_shape, 2 * b)
-        damp = lead(p["damp"], 2)
-        if x.shape[-1] <= self.comb_lmin:
-            # Mic-sized blocks: every lag read predates the block.
-            y, hists, lps = comb_bank_block_static(hists, lps, xb, static_lags, g_all, damp)
-        else:
-            y, hists, lps = comb_bank_block(hists, lps, xb, static_lags, g_all, damp,
-                                            self.comb_lmin)
+        y, hists, lps = self._comb_step(hists, lps, xb, static_lags, g_all, lead(p["damp"], 2))
         return self._diffuse_and_mix(
             state, p, x, [y[..., :b, :], y[..., b:, :]], new_pre,
-            [hists[..., :b, :], hists[..., b:, :]], [lps[..., :b], lps[..., b:]])
+            torch.stack([hists[..., :b, :], hists[..., b:, :]], -3),
+            torch.stack([lps[..., :b], lps[..., b:]], -2))
 
-    def _diffuse_and_mix(self, state, p, x, comb_y, new_pre, new_combs, new_lps):
+    def _comb_step(self, hists, lps, xb, lags, g, damp):
+        if xb.shape[-1] <= self.comb_lmin:
+            # Mic-sized blocks: every lag read predates the block.
+            return comb_bank_block_static(hists, lps, xb, lags, g, damp)
+        return comb_bank_block(hists, lps, xb, lags, g, damp, self.comb_lmin)
+
+    def _comb_bank_model_split(self, state, p, pre_out, g_all):
+        """The streaming comb bank over the mesh's model axis: piece j of
+        ``combs`` (..., 2, r, Lmax) and ``lps`` (..., 2, r) holds combs
+        [j*r, (j+1)*r) of each side on its device, which steps them as the
+        whole bank would; the per-side partial sums (..., 2, N) are added
+        on ``pre_out``'s device, model shard 0 first.  Returns (sums, combs,
+        lps), the state leaves still split."""
+        b = self.n_combs
+        pieces, lp_pieces = state["combs"].pieces, state["lps"].pieces
+        r = b // len(pieces)
+        lead_shape = pre_out.shape[:-2]
+        sums = None
+        new_combs, new_lps = [], []
+        for j, (hist, lp) in enumerate(zip(pieces, lp_pieces)):
+            dev = hist.device
+            combs = range(j * r, (j + 1) * r)
+            lags = tuple(self.comb_lags[side][c] for side in range(2) for c in combs)
+            g = g_all[..., [side * b + c for side in range(2) for c in combs]].to(dev)
+            xb = torch.repeat_interleave(pre_out.to(dev), r, -2)
+            y, h2, l2 = self._comb_step(hist.reshape(*lead_shape, 2 * r, -1),
+                                        lp.reshape(*lead_shape, 2 * r), xb, lags, g,
+                                        lead(p["damp"], 2).to(dev))
+            part = torch.stack([torch.sum(y[..., :r, :], -2), torch.sum(y[..., r:, :], -2)], -2)
+            part = part.to(pre_out.device)
+            sums = part if sums is None else sums + part
+            new_combs.append(h2.reshape(hist.shape))
+            new_lps.append(l2.reshape(lp.shape))
+        return (sums, ModelShards(new_combs, state["combs"].axis),
+                ModelShards(new_lps, state["lps"].axis))
+
+    def _diffuse_and_mix(self, state, p, x, comb_y, new_pre, combs, lps):
         """Per-side allpass diffusers, dry/wet mix with hard clip
         (reverb.py:243-277), and state assembly.  comb_y: per side a
-        (..., K, N) tensor summed over its K axis."""
+        (..., K, N) tensor summed over its K axis; combs, lps: the new comb
+        bank state leaves."""
         new_aps, wet_sides = [], []
         for side in range(2):
             sig = torch.sum(comb_y[side], -2)  # comb sum (reverb.py:234-241)
@@ -142,8 +181,8 @@ class Reverb(EffectModel):
         y = torch.clamp(lead(p["mix_dry"], 2) * x + lead(p["mix_wet"], 2) * wet, -1.0, 1.0)
         new_state = {
             "pre": new_pre,
-            "combs": torch.stack(new_combs, -3),
-            "lps": torch.stack(new_lps, -2),
+            "combs": combs,
+            "lps": lps,
             "aps": tuple(new_aps),
         }
         return new_state, y
@@ -185,4 +224,5 @@ class Reverb(EffectModel):
 
         new_combs = [w_win[..., side * b : (side + 1) * b, :] for side in range(2)]
         new_lps = [lps_all[..., side * b : (side + 1) * b] for side in range(2)]
-        return self._diffuse_and_mix(state, p, x, comb_y, new_pre, new_combs, new_lps)
+        return self._diffuse_and_mix(state, p, x, comb_y, new_pre, torch.stack(new_combs, -3),
+                                     torch.stack(new_lps, -2))

@@ -86,6 +86,48 @@ def partitioned_fft_conv(spec_hist, in_tail, x, ir_spectra, hop: int):
     return y, torch.stack([new_hist.real, new_hist.imag], -3), new_in_tail
 
 
+def partitioned_fft_conv_split(hist_parts, in_tail, x, ir_spectra, hop: int, ir_on):
+    """``partitioned_fft_conv`` with the history split over a mesh's model
+    axis: ``hist_parts[j]`` (..., 2, r, hop+1) holds history partitions
+    [j*r, (j+1)*r) (chronological) on its own device, and ``ir_on(device,
+    lo, hi)`` gives ``ir_spectra[..., lo:hi, :]`` there.
+
+    Streaming (one hop per block): each part multiplies its frames by their
+    partition spectra on its device; the partial spectra are added on x's
+    device, model shard 0 first, then the new frame's term.  The history
+    shifts by one partition: each part takes the next part's oldest frame,
+    the last part the new frame.  Longer blocks join the history, run
+    ``partitioned_fft_conv`` and split it again.
+
+    Returns (y (..., N), the new parts, new_in_tail)."""
+    p = ir_spectra.shape[-2]
+    r = hist_parts[0].shape[-2]
+    n = x.shape[-1]
+    if n // hop != 1:
+        hist = torch.cat([h.to(x.device) for h in hist_parts], -2)
+        y, new_hist, new_in_tail = partitioned_fft_conv(hist, in_tail, x, ir_spectra, hop)
+        return y, [new_hist[..., j * r:(j + 1) * r, :].contiguous().to(h.device)
+                   for j, h in enumerate(hist_parts)], new_in_tail
+
+    frames, new_in_tail = frame_signal(in_tail, x, 2 * hop, hop)
+    spec = rfft_last(frames)  # (..., 1, hop+1)
+    y_spec = None
+    for j, part in enumerate(hist_parts):
+        # Frame j*r + t of the history meets partition p-1-(j*r + t): the
+        # part reversed meets partitions [p-(j+1)r, p-jr) in order.
+        window = torch.flip(torch.complex(part[..., 0, :, :], part[..., 1, :, :]), [-2])
+        acc = torch.sum(window * ir_on(part.device, p - (j + 1) * r, p - j * r), -2)
+        acc = acc.to(x.device)
+        y_spec = acc if y_spec is None else y_spec + acc
+    y_spec = y_spec[..., None, :] + spec * ir_spectra[..., 0:1, :]
+    y = irfft_last(y_spec)[..., hop:].reshape(*x.shape[:-1], n)
+    nxt = [part[..., 0:1, :] for part in hist_parts[1:]] + [
+        torch.stack([spec.real, spec.imag], -3)]
+    new_parts = [torch.cat([part[..., 1:, :], nx.to(part.device)], -2)
+                 for part, nx in zip(hist_parts, nxt)]
+    return y, new_parts, new_in_tail
+
+
 def partition_ir(ir, hop: int):
     """Split an impulse response into rfft'd partitions for
     ``partitioned_fft_conv``: partition q covers ir[q*hop:(q+1)*hop],

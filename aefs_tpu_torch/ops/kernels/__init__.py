@@ -10,7 +10,10 @@ Each kernel module (``resample.py``: K1, K3, the octaver's and the
 chorus's block steps; ``comb.py``: K2, K4) holds the wrappers, their plain
 versions and one launch counter per wrapper.  A wrapper takes the plain
 version only for CPU tensors; on CUDA tensors it launches the kernel or
-raises.
+raises.  A sharded step launches on every card from one thread: each
+wrapper makes its operands' card current around the call for PyTorch, and
+passes its index to the C entry, which makes it current for the library's
+own CUDA runtime before launching.
 """
 
 from __future__ import annotations
@@ -83,14 +86,14 @@ def library():
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
             ll, f = ctypes.c_longlong, ctypes.c_float
-            lib.aefs_octaver_step.argtypes = [p, ll, ll, i, i, i, p, i] + [p] * 10
+            lib.aefs_octaver_step.argtypes = [p, ll, ll, i, i, i, p, i] + [p] * 9 + [i, p]
             lib.aefs_octaver_step.restype = i
-            lib.aefs_chorus_step.argtypes = [p, ll, ll, i, i, i, p, i, f] + [p] * 9
+            lib.aefs_chorus_step.argtypes = [p, ll, ll, i, i, i, p, i, f] + [p] * 8 + [i, p]
             lib.aefs_chorus_step.restype = i
             lib.aefs_comb_sums.argtypes = [
-                p, i, i, i, p, p, p, i, p, p, i, i, i, i, p, p, p, p]
+                p, i, i, i, p, p, p, i, p, p, i, i, i, i, p, p, p, i, p]
             lib.aefs_comb_sums.restype = i
-            lib.aefs_comb_chunks.argtypes = [p, i, i, i, p, p, p, p, i, i, i, p, p, p]
+            lib.aefs_comb_chunks.argtypes = [p, i, i, i, p, p, p, p, i, i, i, p, p, i, p]
             lib.aefs_comb_chunks.restype = i
             _lib = lib
     return _lib

@@ -190,11 +190,13 @@ def comb_sums(x, g, h, lags, c, side_of, n_sides, h_static=None):
     d_tail = torch.empty(lead + (3, b, c), dtype=torch.float32, device=x.device)
     lags_c = (ctypes.c_int * b)(*lags)
     side_c = (ctypes.c_int * b)(*side_of)
-    err = library().aefs_comb_sums(
-        x.data_ptr(), s_rows, n, max(files, 1), g.data_ptr(), h.data_ptr(), w.ctypes.data,
-        n_taps,
-        ctypes.addressof(lags_c), ctypes.addressof(side_c), b, c, m, n_sides,
-        y.data_ptr(), ysum.data_ptr(), d_tail.data_ptr(), stream_ptr(x.device))
+    with torch.cuda.device(x.device):  # the operands' card, current for PyTorch too
+        err = library().aefs_comb_sums(
+            x.data_ptr(), s_rows, n, max(files, 1), g.data_ptr(), h.data_ptr(), w.ctypes.data,
+            n_taps,
+            ctypes.addressof(lags_c), ctypes.addressof(side_c), b, c, m, n_sides,
+            y.data_ptr(), ysum.data_ptr(), d_tail.data_ptr(), x.get_device(),
+            stream_ptr(x.device))
     check(err, "comb_sums")
     comb_sums.launches += 1
     return ysum, d_tail
@@ -227,10 +229,11 @@ def comb_chunks(x, g, h, lags, c, side_of):
     damped = torch.empty(lead + (m, b, c), dtype=torch.float32, device=x.device)
     lags_c = (ctypes.c_int * b)(*lags)
     side_c = (ctypes.c_int * b)(*side_of)
-    err = library().aefs_comb_chunks(
-        x.data_ptr(), s_rows, n, max(files, 1), g.data_ptr(), h.data_ptr(),
-        ctypes.addressof(lags_c), ctypes.addressof(side_c), b, c, m,
-        y.data_ptr(), damped.data_ptr(), stream_ptr(x.device))
+    with torch.cuda.device(x.device):  # the operands' card, current for PyTorch too
+        err = library().aefs_comb_chunks(
+            x.data_ptr(), s_rows, n, max(files, 1), g.data_ptr(), h.data_ptr(),
+            ctypes.addressof(lags_c), ctypes.addressof(side_c), b, c, m,
+            y.data_ptr(), damped.data_ptr(), x.get_device(), stream_ptr(x.device))
     check(err, "comb_chunks")
     comb_chunks.launches += 1
     return y, damped

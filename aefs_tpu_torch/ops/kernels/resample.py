@@ -189,12 +189,13 @@ def octaver_step(state, p, x):
     _check_scalar("mix", p["mix"], _F32, dev, slots)
     s, lds = _slot_strides(x, slots)
     buf = torch.empty(s * (c * n + size + 6), dtype=_F32, device=x.device)
-    err = library().aefs_octaver_step(
-        x.data_ptr(), lds, x.stride(-2), c, n, s, hist.data_ptr(), size,
-        p["semitones"].data_ptr(), p["mix"].data_ptr(), state["n_abs"].data_ptr(),
-        state["base_hi"].data_ptr(), state["base_lo"].data_ptr(),
-        state["semi_prev"].data_ptr(), state["step_hi"].data_ptr(),
-        state["step_lo"].data_ptr(), buf.data_ptr(), stream_ptr(x.device))
+    with torch.cuda.device(x.device):  # the operands' card, current for PyTorch too
+        err = library().aefs_octaver_step(
+            x.data_ptr(), lds, x.stride(-2), c, n, s, hist.data_ptr(), size,
+            p["semitones"].data_ptr(), p["mix"].data_ptr(), state["n_abs"].data_ptr(),
+            state["base_hi"].data_ptr(), state["base_lo"].data_ptr(),
+            state["semi_prev"].data_ptr(), state["step_hi"].data_ptr(),
+            state["step_lo"].data_ptr(), buf.data_ptr(), dev, stream_ptr(x.device))
     check(err, "octaver_step")
     octaver_step.launches += 1
     y, new_hist, tail = buf.split_with_sizes((s * c * n, s * size, 6 * s))
@@ -260,11 +261,12 @@ def chorus_step(state, p, x, fs):
         _check_scalar(k, p[k], _F32, dev, slots)
     s, lds = _slot_strides(x, slots)
     buf = torch.empty(s * (c * (n + hl) + 2), dtype=_F32, device=x.device)
-    err = library().aefs_chorus_step(
-        x.data_ptr(), lds, x.stride(-2), c, n, s, hist.data_ptr(), hl, float(fs),
-        p["rate_hz"].data_ptr(), p["depth_ms"].data_ptr(), p["base_ms"].data_ptr(),
-        p["mix"].data_ptr(), p["spread"].data_ptr(), state["ph_hi"].data_ptr(),
-        state["ph_lo"].data_ptr(), buf.data_ptr(), stream_ptr(x.device))
+    with torch.cuda.device(x.device):  # the operands' card, current for PyTorch too
+        err = library().aefs_chorus_step(
+            x.data_ptr(), lds, x.stride(-2), c, n, s, hist.data_ptr(), hl, float(fs),
+            p["rate_hz"].data_ptr(), p["depth_ms"].data_ptr(), p["base_ms"].data_ptr(),
+            p["mix"].data_ptr(), p["spread"].data_ptr(), state["ph_hi"].data_ptr(),
+            state["ph_lo"].data_ptr(), buf.data_ptr(), dev, stream_ptr(x.device))
     check(err, "chorus_step")
     chorus_step.launches += 1
     y, new_hist, tail = buf.split_with_sizes((s * c * n, s * c * hl, 2 * s))

@@ -21,7 +21,10 @@ x (S, 1, N), every state leaf (S, ...) but the lockstep counters, and
 
 One step launches each kernel of the chain once for all S slots (the
 octaver's K1 and the chorus's K3 have a slot grid), so the launch count
-per step does not grow with S.
+per step does not grow with S.  ``shard=True`` splits the slot axis over
+every visible card (``parallel/mesh.py:visible_devices``): each card holds
+a contiguous slot range with its own chain and state, and a step launches
+each card's share in turn, once per card.
 
 Protocol (additive; one connection per session):
 
@@ -52,7 +55,7 @@ import time
 import numpy as np
 import torch
 
-from aefs_tpu_torch.core.chain import build_chain
+from aefs_tpu_torch.core.chain import build_chain, slot_ranges
 from aefs_tpu_torch.core.config import (
     BLOCKSIZE,
     CHANNELS_IN,
@@ -61,6 +64,7 @@ from aefs_tpu_torch.core.config import (
     SAMPLE_RATE,
     WS_MAX_MESSAGE,
 )
+from aefs_tpu_torch.parallel import mesh
 from aefs_tpu_torch.utils.platform import require_device, select_device
 
 try:
@@ -94,31 +98,38 @@ def dict_copy(m):
 
 
 class _Readback:
-    """Depth-1 readback of a step's (S, co, N) output.  On the card the
-    copy goes into one of two pinned host buffers with a non-blocking copy
-    and a CUDA event, so the buffer handed back for step k-1 is never the
-    one step k's copy is writing; on the CPU the output is the result."""
+    """Depth-1 readback of a step's per-shard (S/n, co, N) outputs as one
+    (S, co, N) array.  On the card each shard's copy goes into its slot
+    range of one of two pinned host buffers with a non-blocking copy and a
+    CUDA event recorded on that shard's stream, so the buffer handed back
+    for step k-1 is never the one step k's copies are writing; on the CPU
+    the outputs are the result."""
 
-    def __init__(self, shape, device):
+    def __init__(self, shape, device, ranges):
         self.cuda = device.type == "cuda"
+        self.ranges = ranges
         if self.cuda:
             self.bufs = [torch.empty(shape, dtype=torch.float32, pin_memory=True)
                          for _ in range(2)]
             self.next = 0
 
-    def launch(self, y):
-        """Start y's copy to the host; returns a function that waits for it
-        and returns it as a numpy array."""
+    def launch(self, ys):
+        """Start the outputs' copy to the host; returns a function that
+        waits for it and returns it as a numpy array."""
         if not self.cuda:
-            return y.numpy
+            return ys[0].numpy if len(ys) == 1 else lambda: torch.cat(ys).numpy()
         buf = self.bufs[self.next]
         self.next ^= 1
-        buf.copy_(y, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
+        events = []
+        for (lo, hi), y in zip(self.ranges, ys):
+            buf[lo:hi].copy_(y, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(y.device))
+            events.append(ev)
 
         def collect():
-            ev.synchronize()  # a fault of the step surfaces here
+            for ev in events:
+                ev.synchronize()  # a fault of the step surfaces here
             return buf.numpy().copy()
 
         return collect
@@ -127,6 +138,10 @@ class _Readback:
 class SessionPool:
     """Batched multi-session runtime: slot allocation, per-slot targets,
     one batched chain step shared by every session.
+
+    With ``shard=True`` over n devices, ``self.state`` holds n trees (slot
+    range i of S/n on device i) and each step runs n chain steps; with one
+    device it holds one tree.
 
     Locking is two-tier so control ops never wait on a device step:
     ``_ctrl_lock`` guards the HOST-side mutable maps (slot free-list,
@@ -138,16 +153,18 @@ class SessionPool:
     def __init__(self, chain_config, n_slots: int = 16, fs: int = SAMPLE_RATE,
                  blocksize: int = BLOCKSIZE, shard: bool = False,
                  grid: bool = False, device="cuda"):
-        """shard=True on one device is what JAX does there: nothing; over
-        several cards it raises: the port's mesh covers one card.
+        """shard=True distributes the slot axis over every visible device of
+        ``device``'s kind (``parallel/mesh.py:visible_devices``): a pool of
+        4 cards hosts 4x the sessions of one; n_slots must divide the
+        device count; on one device it does nothing, as in JAX.
         grid=True bakes whole-octave octaver ratios for exact-grid serving
         (see ``grid_static_overrides``).  ``device``: the card unless the
         caller asks for the CPU (no fallback)."""
         self.device = require_device(device)
-        if shard and self.device.type == "cuda" and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                "a pool sharded over several cards is not supported: the mesh "
-                "of aefs_tpu_torch covers one card")
+        self.devices = list(mesh.visible_devices(self.device)) if shard else [self.device]
+        if len(self.devices) > 1 and int(n_slots) % len(self.devices):
+            raise ValueError(f"n_slots={n_slots} must divide over "
+                             f"{len(self.devices)} devices")
         self.n_slots = int(n_slots)
         self.fs = int(fs)
         self.blocksize = int(blocksize)
@@ -156,8 +173,10 @@ class SessionPool:
         self.chain_config = chain_config
         self.chain, single_state, self._tmap0 = build_chain(
             chain_config, fs, blocksize, channels_in=CHANNELS_IN,
-            channels_out=CHANNELS_OUT, device=self.device,
+            channels_out=CHANNELS_OUT, device=self.devices[0],
             static_overrides=grid_static_overrides(chain_config) if grid else None)
+        self._chains = [self.chain.on_device(d) for d in self.devices]
+        self._ranges = slot_ranges(self.n_slots, len(self.devices))
         self._fresh_single = single_state
         # Per-slot parameter targets: host-side maps + ONE host buffer
         # tbuf[row, slot] (row = (effect, param) in chain order), shipped
@@ -182,7 +201,8 @@ class SessionPool:
             for i, (eid, model) in enumerate(self.chain.effects)
             if (i, "grid_phase") in self._trows
         }
-        self._readback = _Readback((self.n_slots, CHANNELS_OUT, self.blocksize), self.device)
+        self._readback = _Readback((self.n_slots, CHANNELS_OUT, self.blocksize),
+                                   self.devices[0], self._ranges)
         # (collect, slots) of the dispatch whose readback the NEXT step does.
         self._inflight = None
         self.state = self._fresh_batched_state()
@@ -195,27 +215,45 @@ class SessionPool:
         # would advance every slot's phase and glide state by one silent
         # block before any session arrives.
         st = self.state
-        x = torch.zeros((self.n_slots, CHANNELS_IN, self.blocksize), device=self.device)
+        x = self._put_blocks(np.zeros((self.n_slots, CHANNELS_IN, self.blocksize), np.float32))
         for _ in range(2):
-            st, y = self._step(st, self._put_targets(self._tbuf), x)
-        y.cpu()
+            st, ys = self._step(st, self._put_targets(self._tbuf), x)
+        for y in ys:
+            y.cpu()
 
     def _fresh_batched_state(self):
-        """Fresh per-slot audio state for every slot; also the recovery
-        state after a step or its readback failed."""
-        return self.chain.batch_state(self._fresh_single, self.n_slots)
+        """Fresh per-slot audio state for every slot, one tree per shard;
+        also the recovery state after a step or its readback failed."""
+        batched = self.chain.batch_state(self._fresh_single, self.n_slots)
+        if len(self.devices) == 1:
+            return [batched]
+        return self.chain.split_slots(batched, self.devices)
+
+    def _put_blocks(self, x):
+        """Ship a (S, ci, N) host input: each shard's slot range to its
+        device."""
+        return [torch.from_numpy(x[lo:hi]).to(d) for (lo, hi), d in zip(self._ranges,
+                                                                         self.devices)]
 
     def _put_targets(self, tbuf):
-        """Ship a (P, S) host target buffer for one dispatch."""
-        return torch.from_numpy(tbuf).to(self.device)
+        """Ship a (P, S) host target buffer for one dispatch: each shard's
+        column range to its device."""
+        return [torch.from_numpy(np.ascontiguousarray(tbuf[:, lo:hi])).to(d)
+                for (lo, hi), d in zip(self._ranges, self.devices)]
 
-    def _step(self, state, tflat, x):
-        """The batched chain step: the target rows are (S,) views of the
-        shipped buffer."""
-        targets = tuple(
-            {name: tflat[self._trows[(i, name)]] for name in model.PARAMS}
-            for i, (eid, model) in enumerate(self.chain.effects))
-        return self.chain.process_block(state, targets, x)
+    def _step(self, states, tflats, xs):
+        """The batched chain step of every shard, launched in turn: the
+        target rows are (S/n,) views of each shard's shipped buffer.
+        Returns (states, outputs), one per shard."""
+        new, ys = [], []
+        for chain, state, tflat, x in zip(self._chains, states, tflats, xs):
+            targets = tuple(
+                {name: tflat[self._trows[(i, name)]] for name in model.PARAMS}
+                for i, (eid, model) in enumerate(chain.effects))
+            state, y = chain.process_block(state, targets, x)
+            new.append(state)
+            ys.append(y)
+        return new, ys
 
     # -- slots (control plane: host-only, never waits on a dispatch) ------
     def claim(self):
@@ -307,11 +345,13 @@ class SessionPool:
         (slot, single) entry — ``single`` is None for a plain release (fresh
         default state) or a session-configured seed from
         claim_configured/rebuild_slot.  Rare; runs under the step lock."""
-        state = self.state
+        states = list(self.state)
+        span = self.n_slots // len(self.devices)
         for slot, single in resets:
-            state = self.chain.graft_slot_state(
-                state, single if single is not None else self._fresh_single, slot)
-        self.state = state
+            i, local = divmod(slot, span)
+            states[i] = self._chains[i].graft_slot_state(
+                states[i], single if single is not None else self._fresh_single, local)
+        self.state = states
 
     # -- batched step ------------------------------------------------------
     def step_blocks(self, blocks: dict[int, np.ndarray]):
@@ -345,9 +385,9 @@ class SessionPool:
             t0 = time.perf_counter()
             # A raise here leaves self.state at the pre-step state: the step
             # is functional and the assignment never runs.
-            self.state, y = self._step(self.state, self._put_targets(tbuf),
-                                       torch.from_numpy(x).to(self.device))
-            prev, self._inflight = self._inflight, (self._readback.launch(y), tuple(blocks))
+            self.state, ys = self._step(self.state, self._put_targets(tbuf),
+                                        self._put_blocks(x))
+            prev, self._inflight = self._inflight, (self._readback.launch(ys), tuple(blocks))
             # Advance the shared grid phase(s) for the block just enqueued
             # (every slot stepped, idle ones on silence).
             if self._phase_rows:
@@ -911,7 +951,7 @@ async def main(argv=None):
     ap.add_argument("--config", help="JSON chain-config file (overrides --preset)")
     ap.add_argument("--slots", type=int, default=16)
     ap.add_argument("--shard", action="store_true",
-                    help="distribute slots over all devices (one card: no effect)")
+                    help="distribute slots over all devices (multi-chip pool)")
     ap.add_argument("--grid", action="store_true",
                     help="bake whole-octave octaver ratios for exact-grid "
                          "serving (higher density + -80 dBFS parity; "

@@ -31,3 +31,15 @@ def select_device(default: str | None = None) -> torch.device:
     """The device named by ``AEFS_PLATFORM``, else ``default``, else the
     card."""
     return require_device(os.environ.get("AEFS_PLATFORM") or default or "cuda")
+
+
+def same_device(a, b) -> bool:
+    """Whether ``a`` and ``b`` name one device (``cuda`` without an index
+    is the current card)."""
+    def norm(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    return norm(a) == norm(b)

@@ -77,10 +77,29 @@ Drives the port's main path (aefs_tpu_torch) end to end on the card:
    within 5 s of SIGTERM); the flagship's grid pool (``grid=True``) of 16
    slots over 375 blocks, each slot against its grid solo chain fed the
    pool's ``grid_phase`` and 3 slots against the CPU grid pool, K1 never
-   launched, step times beside the generic pool's; ``make_mesh`` and
-   ``ShardedStreams`` of 16 flagship streams, bit-equal to the pool.
+   launched, step times beside the generic pool's; ``make_mesh`` (one data
+   shard per card) and ``ShardedStreams`` of 16 flagship streams, bit-equal
+   to the pool.
+12. sharding (``shard``) over every visible card or, with one card, four
+   shards on it (``parallel/mesh.py:visible_devices`` replaced; the phase
+   prints the cards and the shards' devices): ``ShardedStreams`` of the
+   flagship over 16 streams on a (4, 1) mesh, 40 blocks, against the
+   one-device runner and the pool, K1 once per shard per step; a (2, 2)
+   mesh over the reverb chain and the convolution reverb (the model axis)
+   within -120 / -100 dBFS of one device; ``SessionPool(shard=True)`` at 16
+   slots over 40 blocks (an ``update_param``, a release, a claim) against
+   the unsharded pool, then step p50/p99, synchronous and pipelined, at
+   S = 16 and 64 over 1, 2 and 4 shards; ``render_batch(shard=True)`` at
+   F = 3, 4 and 16 demo-length files against the unsharded batch, K2 once
+   per shard, with both wall times; ``--batch --shard`` as a subprocess;
+   a sharded session saved, loaded and stepped.  Every data-sharded output
+   is held bit for bit (a difference is printed, and fails beyond -120
+   dBFS).
 
-Every path of phases 6-11 runs from zeroed kernel launch counters, read
+``python3 chip_smoke.py --only shard`` runs the probe, the build and phase
+12 alone, over every visible card (the default run needs one card).
+
+Every path of phases 6-12 runs from zeroed kernel launch counters, read
 just after it; each fails if a kernel it runs was not launched.  The last
 slice's paths run none of the four kernels (their FFTs are cuFFT, as the
 JAX package's are ``jnp.fft`` outside Pallas); their counts are recorded.
@@ -137,6 +156,8 @@ from aefs_tpu_torch.ops.kernels.comb import (
 from aefs_tpu_torch.ops.kernels.resample import (
     chorus_step, chorus_step_plain, octaver_step, octaver_step_plain)
 from aefs_tpu_torch.ops.ringbuf import comb_bank_file_chunks, comb_chunk_size
+from aefs_tpu_torch.engine.checkpoint import load_session, save_session
+from aefs_tpu_torch.parallel import mesh as mesh_mod
 from aefs_tpu_torch.parallel.mesh import ShardedStreams, make_mesh
 from aefs_tpu_torch.server import backend
 from aefs_tpu_torch.server.pool import MultiPool, PoolServer, SessionPool, grid_static_overrides
@@ -180,7 +201,7 @@ LAST_SLICE_PRESETS = ("Clean Noise Removal", "Crunch", "Concert Hall (Convolutio
 # Every wrapper's launch counter, by the name the kernels' record uses.
 COUNTERS = {"octaver_step": octaver_step, "comb_sums": comb_sums,
             "chorus_step": chorus_step, "comb_chunks": comb_chunks}
-LAUNCHES = {k: 0 for k in COUNTERS}  # summed over the paths of phases 6-11
+LAUNCHES = {k: 0 for k in COUNTERS}  # summed over the paths of phases 6-12
 POOL_SLOTS = 16  # the pool server's default width
 SLOT_GRID_S = (1, 16, 64)
 SLOT_GRID_BLOCKS = 40
@@ -273,10 +294,12 @@ def count_launches(run, need=(), per_block=None, exact=None):
     return result, counts
 
 
-def probe():
+def probe(several=False):
+    """The card's name and ``nvidia-smi`` line; one card unless ``several``
+    (phase 12 alone runs over every visible card)."""
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA card; torch.cuda.is_available() is false")
-    if torch.cuda.device_count() != 1:
+    if torch.cuda.device_count() != 1 and not several:
         raise RuntimeError(f"chip_smoke drives one card; {torch.cuda.device_count()} are visible "
                            "(set CUDA_VISIBLE_DEVICES to one)")
     smi = subprocess.run(
@@ -1267,12 +1290,14 @@ def preset_cfg(name):
     return FLAGSHIP if name == "flagship" else DEFAULT_PRESETS[name]
 
 
-def timed_steps(cfg, slots, mono, steps, pipelined, need=None, grid=False):
+def timed_steps(cfg, slots, mono, steps, pipelined, need=None, grid=False, shard=False,
+                per_step=1):
     """Host-clock ms of ``steps`` pool steps (every slot streaming) after 10
     warm-up steps; the synchronous step waits for its readback, the
     pipelined one for the previous step's.  Counted from zeroed launch
-    counters when ``need`` names the path's kernel."""
-    pool = SessionPool(cfg, n_slots=slots, device="cuda", grid=grid)
+    counters when ``need`` names the path's kernel (``per_step`` launches a
+    step: one per shard)."""
+    pool = SessionPool(cfg, n_slots=slots, device="cuda", grid=grid, shard=shard)
     x = mono[:, 0]
     blocks = [{s: x[(b * slots + s) * BLOCK % (x.shape[0] - BLOCK):][:BLOCK]
                for s in range(slots)} for b in range(steps + 10)]
@@ -1288,7 +1313,7 @@ def timed_steps(cfg, slots, mono, steps, pipelined, need=None, grid=False):
             lat.append(1000.0 * (time.perf_counter() - t0))
         return lat
 
-    lat, counts = count_launches(run, need=(need,) if need else (), per_block=steps)
+    lat, counts = count_launches(run, need=(need,) if need else (), per_block=steps * per_step)
     if pipelined:
         pool.flush_pipeline()
     lat.sort()
@@ -1809,8 +1834,8 @@ def mesh(mono):
     ``SessionPool`` given the same params, the peak meter max |y|, K1 once
     per step."""
     m = make_mesh()
-    if m.shape != {"data": 1, "model": 1}:
-        raise AssertionError(f"make_mesh() on one card: {m.shape}")
+    if m.shape != {"data": torch.cuda.device_count(), "model": 1}:
+        raise AssertionError(f"make_mesh() over {torch.cuda.device_count()} card(s): {m.shape}")
     try:
         make_mesh(2)
     except ValueError as e:
@@ -1851,14 +1876,293 @@ def mesh(mono):
     phase("mesh", shape=m.shape, make_mesh_2=too_few, streams=POOL_SLOTS, blocks=MESH_BLOCKS,
           bitwise_vs_pool=True, launches=counts, step_ms_mean=1000.0 * wall / MESH_BLOCKS)
 
+# -- phase 12: sharding over several cards ------------------------------------
 
-def main():
-    card, _ = probe()
+SHARD_STREAMS, SHARD_BLOCKS, SHARD_CHANGE_AT = 16, 40, 20
+SHARD_FILES = (3, 4, 16)
+SHARD_TIMING_S = (16, 64)
+MODEL_CHAINS = {
+    "filter_delay_reverb": ([
+        {"effect_id": "f", "type": "filter",
+         "params": {"filter_type": 0, "cutoff_hz": 2000, "q": 0.707}},
+        {"effect_id": "d", "type": "delay",
+         "params": {"delay_ms": 375, "feedback": 0.3, "mix_dry": 1.0, "mix_wet": 0.8,
+                    "offset_ms": 5}},
+        {"effect_id": "r", "type": "reverb",
+         "params": {"rt60_s": 1.5, "damp": 0.3, "pre_delay_ms": 10, "mix_dry": 0.7,
+                    "mix_wet": 0.5}}], -120.0),
+    "convreverb": ([
+        {"effect_id": "c", "type": "convreverb", "params": {"mix_dry": 0.7, "mix_wet": 0.4},
+         "ir_seconds": 0.4, "partition_multiple": 2}], -100.0),
+}
+MODEL_STREAMS, MODEL_BLOCK, MODEL_BLOCKS = 8, 512, 12
+
+
+def shard_devices():
+    """Every visible card, or with one card four shards on it: the one-card
+    form, which shows the sharded code paths but not cards working side by
+    side."""
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        return [torch.device("cuda", i) for i in range(cards)]
+    return [torch.device("cuda", 0)] * 4
+
+
+def held_equal(what, got, want):
+    """(bitwise, dBFS) of a sharded output against its unsharded run; a
+    difference beyond -120 dBFS fails (a batched library product may pick
+    another algorithm at another batch count: recorded, held to -120)."""
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    worst = max(err_dbfs(a, b) for a, b in zip(got, want))
+    if not same and worst > -120.0:
+        raise AssertionError(f"{what}: {worst:.1f} dBFS from the unsharded run")
+    return same, worst
+
+
+def flagship_maps(tmap, slots):
+    maps = []
+    for s in range(slots):
+        mp = {k: dict(v) for k, v in tmap.items()}
+        for eid, name, value in FLAGSHIP_SLOT_PARAMS:
+            mp[eid][name] = value(s)
+        maps.append(mp)
+    return maps
+
+
+def shard_streams_data(mono, devs):
+    """``ShardedStreams`` of the flagship over 16 streams with per-stream
+    targets on a (shards, 1) mesh, 40 blocks, against the one-device runner
+    and a 16-slot ``SessionPool``: K1 once per shard per step, the peak
+    meter max |y|.  Returns the final sharded state and its runner."""
+    chain, _, tmap = build_chain(FLAGSHIP, FS, BLOCK, device=devs[0])
+    maps = flagship_maps(tmap, SHARD_STREAMS)
+    streams = pool_streams(mono, SHARD_STREAMS, SHARD_BLOCKS)
+    xs = [np.stack([streams[s][b] for s in range(SHARD_STREAMS)])[:, None, :]
+          for b in range(SHARD_BLOCKS)]
+    runs = {}
+    for name, mesh_devs in (("sharded", devs), ("one", devs[:1])):
+        runner = ShardedStreams(chain, make_mesh(devices=mesh_devs), SHARD_STREAMS)
+        state, _ = runner.init_state()
+        targets = runner.batch_targets(maps)
+        # A discarded warm step (the step is functional: state stays fresh).
+        runner.run_block(state, targets, xs[0], per_stream_targets=True)[1].cpu()
+
+        def run():
+            nonlocal state
+            outs, t0 = [], time.perf_counter()
+            for x in xs:
+                state, y, peak = runner.run_block(state, targets, x, per_stream_targets=True)
+                y = y.cpu().numpy()
+                if float(peak) != float(np.max(np.abs(y))):
+                    raise AssertionError(f"ShardedStreams {name}: peak is not max |y|")
+                outs.append(y)
+            return outs, time.perf_counter() - t0
+
+        (outs, wall), counts = count_launches(run, exact={
+            "octaver_step": SHARD_BLOCKS * len(mesh_devs)})
+        runs[name] = (outs, wall, counts, state, runner)
+    pool = SessionPool(FLAGSHIP, n_slots=SHARD_STREAMS, device=devs[0])
+    for s in range(SHARD_STREAMS):
+        pool.claim()
+        for eid, name, value in FLAGSHIP_SLOT_PARAMS:
+            pool.update_param(s, eid, name, value(s))
+    pool_outs = []
+    for b in range(SHARD_BLOCKS):
+        out = pool.step_blocks({s: streams[s][b] for s in range(SHARD_STREAMS)})
+        pool_outs.append(np.stack([out[s].T for s in range(SHARD_STREAMS)]))
+    same_one, db_one = held_equal("ShardedStreams vs one device", runs["sharded"][0],
+                                  runs["one"][0])
+    same_pool, db_pool = held_equal("ShardedStreams vs the pool", runs["sharded"][0], pool_outs)
+    outs, wall, counts, state, runner = runs["sharded"]
+    phase("shard_streams_data", mesh=runner.mesh.shape, streams=SHARD_STREAMS,
+          blocks=SHARD_BLOCKS, launches=counts, bitwise_vs_one_device=same_one,
+          vs_one_device_dbfs=db_one, bitwise_vs_pool=same_pool, vs_pool_dbfs=db_pool,
+          step_ms_mean=1000.0 * wall / SHARD_BLOCKS,
+          one_device_step_ms_mean=1000.0 * runs["one"][1] / SHARD_BLOCKS)
+    return state, runner, maps, xs
+
+
+def shard_streams_model(devs):
+    """A (2, 2) mesh over the reverb chain of tests/test_parallel.py and the
+    convolution reverb with ``partition_multiple=2``: 8 streams, 12 blocks
+    of 512, each within its JAX bar (-120 / -100 dBFS) of the one-device
+    runner."""
+    rows = {}
+    rng = np.random.default_rng(5)
+    xs = [(0.2 * rng.standard_normal((MODEL_STREAMS, 1, MODEL_BLOCK))).astype(np.float32)
+          for _ in range(MODEL_BLOCKS)]
+    for name, (cfg, bar) in MODEL_CHAINS.items():
+        chain, _, tmap = build_chain(cfg, FS, MODEL_BLOCK, device=devs[0])
+        tg = chain.targets(tmap)
+        outs = {}
+        for label, mesh_devs, m in (("model", devs[:4], 2), ("one", devs[:1], 1)):
+            runner = ShardedStreams(chain, make_mesh(devices=mesh_devs, model_parallel=m),
+                                    MODEL_STREAMS)
+            state, _ = runner.init_state()
+            ys = []
+            for x in xs:
+                state, y, _ = runner.run_block(state, tg, x)
+                ys.append(y.cpu().numpy())
+            outs[label] = ys
+        worst = max(err_dbfs(a, b) for a, b in zip(outs["model"], outs["one"]))
+        if not worst <= bar:
+            raise AssertionError(f"model-sharded {name}: {worst:.1f} dBFS > {bar}")
+        rows[name] = {"vs_one_device_dbfs": worst, "bar_dbfs": bar}
+    phase("shard_streams_model", mesh={"data": 2, "model": 2}, streams=MODEL_STREAMS,
+          blocks=MODEL_BLOCKS, block=MODEL_BLOCK, chains=rows)
+
+
+def shard_pool(mono, devs):
+    """``SessionPool(shard=True)`` of the flagship, 16 slots over the shards
+    for 40 blocks (per-slot params, an ``update_param``, a release and a
+    claim at block 20) bit for bit against the unsharded pool, K1 once per
+    shard per step; then step p50/p99, synchronous and pipelined, at S = 16
+    and 64 over 1, 2 and all shards (the host's cost against n)."""
+    streams = pool_streams(mono, SHARD_STREAMS, SHARD_BLOCKS)
+    pool = SessionPool(FLAGSHIP, n_slots=SHARD_STREAMS, shard=True, device="cuda")
+    if len(pool.state) != len(devs):
+        raise AssertionError(f"a sharded pool holds {len(pool.state)} shards, not {len(devs)}")
+    outs, counts = count_launches(
+        lambda: drive_pool(pool, streams, SHARD_BLOCKS, change_at=SHARD_CHANGE_AT),
+        exact={"octaver_step": SHARD_BLOCKS * len(devs)})
+    plain = SessionPool(FLAGSHIP, n_slots=SHARD_STREAMS, device="cuda")
+    want = drive_pool(plain, streams, SHARD_BLOCKS, change_at=SHARD_CHANGE_AT)
+    same, worst = held_equal("sharded pool vs unsharded pool",
+                             [o[s] for o in outs for s in o], [o[s] for o in want for s in o])
+    timing = {}
+    for n in sorted({1, 2, len(devs)}):
+        mesh_mod.visible_devices = lambda device=None, n=n: devs[:n]
+        for slots in SHARD_TIMING_S:
+            for mode in ("sync", "pipelined"):
+                t, _ = timed_steps(FLAGSHIP, slots, mono, TIMED_STEPS, mode == "pipelined",
+                                   "octaver_step", shard=n > 1, per_step=n)
+                timing[f"shards={n} S={slots} {mode}"] = {
+                    "p50_ms": t["p50_ms"], "p99_ms": t["p99_ms"], "max_ms": t["max_ms"]}
+    mesh_mod.visible_devices = lambda device=None: devs
+    phase("shard_pool", slots=SHARD_STREAMS, shards=len(devs), blocks=SHARD_BLOCKS,
+          launches=counts, bitwise_vs_unsharded=same, vs_unsharded_dbfs=worst,
+          step_ms=timing, deadline_ms=BUDGET_MS)
+
+
+def shard_render(demo, devs):
+    """``render_batch(shard=True)`` of the flagship at F = 3 (padded to a
+    multiple of the shards), 4 and 16 demo-length files: each file bit for
+    bit its unsharded render, K2 once per shard, wall time and aggregate
+    realtime factor beside the unsharded batch's."""
+    rows = []
+    for files in SHARD_FILES:
+        batch = sweep_files(demo, files)
+        walls = {}
+        outs = {}
+        for label, shard in (("sharded", True), ("unsharded", False)):
+            render_batch(FLAGSHIP, batch, FS, shard=shard, device="cuda")  # cold
+
+            def warm():
+                t0 = time.perf_counter()
+                out = render_batch(FLAGSHIP, batch, FS, shard=shard, device="cuda")
+                return out, time.perf_counter() - t0
+
+            (outs[label], walls[label]), counts = count_launches(
+                warm, exact={"comb_sums": len(devs) if shard else 1})
+            if shard:
+                sharded_counts = counts
+        same, worst = held_equal(f"sharded render_batch F={files}", outs["sharded"],
+                                 outs["unsharded"])
+        audio_s = files * demo.shape[0] / FS
+        row = {"files": files, "frames": demo.shape[0], "shards": len(devs),
+               "launches": sharded_counts, "bitwise_vs_unsharded": same,
+               "vs_unsharded_dbfs": worst, "wall_s": walls["sharded"],
+               "realtime_x": audio_s / walls["sharded"], "unsharded_wall_s": walls["unsharded"],
+               "unsharded_realtime_x": audio_s / walls["unsharded"]}
+        phase("shard_render_batch", **row)
+        rows.append(row)
+    return rows
+
+
+def shard_cli(demo, work):
+    """``cli --batch --shard`` as a subprocess over three files: byte-equal to
+    the encoding of ``render_batch(shard=True)`` over the cards the
+    subprocess sees (one card: the same render)."""
+    paths = []
+    for i, f in enumerate(demo_files(demo)):
+        paths.append(work / f"shard_in_{i}.wav")
+        write_wav_file(str(paths[-1]), f, FS)
+    decoded = [read_wav_file(str(p))[0] for p in paths]
+    want = render_batch(FLAGSHIP, decoded, FS, shard=True, device="cuda")
+    cfg_path = work / "flagship.json"
+    cfg_path.write_text(json.dumps(FLAGSHIP))
+    t0 = time.perf_counter()
+    proc = run_cli("--batch", work / "shard_out", *paths, "--config", cfg_path, "--shard")
+    wall = time.perf_counter() - t0
+    for p, w in zip(paths, want):
+        if (work / "shard_out" / p.name).read_bytes() != encode_wav_int16(w, FS):
+            raise AssertionError(f"cli --batch --shard: {p.name} differs")
+    phase("shard_cli_batch", files=len(paths), subprocess_cards=torch.cuda.device_count(),
+          byte_equal=True, subprocess_wall_s=wall, report=proc.stdout.strip().splitlines()[-1])
+
+
+def shard_checkpoint(state, runner, maps, xs, work):
+    """The data-sharded flagship state saved (joined, in JAX's leaf order),
+    loaded onto a sharded template and stepped: bit-equal to the state it
+    was saved from."""
+    targets = runner.batch_targets(maps)
+    t0 = time.perf_counter()
+    save_session(str(work / "shard_session"), FLAGSHIP, maps[0], state)
+    _, _, rebuild, _, _, _ = load_session(str(work / "shard_session"))
+    restored = rebuild(runner.init_state()[0])
+    wall = time.perf_counter() - t0
+    _, y_a, _ = runner.run_block(state, targets, xs[0], per_stream_targets=True)
+    _, y_b, _ = runner.run_block(restored, targets, xs[0], per_stream_targets=True)
+    if not torch.equal(y_a, y_b):
+        raise AssertionError("sharded session resumed differently")
+    phase("shard_checkpoint", shards=len(restored.shards), bitwise=True, save_load_s=wall)
+
+
+def shard(demo, mono, work):
+    """Phase 12: the mesh's data and model axes, the sharded pool, the
+    sharded batch render, ``--shard`` and sharded checkpoints, over every
+    card or, with one card, four shards on it."""
+    devs = shard_devices()
+    phase("shard_devices", cards=torch.cuda.device_count(),
+          shards=[str(d) for d in devs], one_card_form=torch.cuda.device_count() == 1)
+    visible = mesh_mod.visible_devices
+    mesh_mod.visible_devices = lambda device=None: devs
+    walls = {}
+    try:
+        (state, runner, maps, xs), walls["streams_data"] = timed_phase(
+            lambda: shard_streams_data(mono, devs))
+        for step, fn in (("streams_model", lambda: shard_streams_model(devs)),
+                         ("pool", lambda: shard_pool(mono, devs)),
+                         ("render_batch", lambda: shard_render(demo, devs)),
+                         ("cli_batch", lambda: shard_cli(demo, work)),
+                         ("checkpoint", lambda: shard_checkpoint(state, runner, maps, xs,
+                                                                 work))):
+            _, walls[step] = timed_phase(fn)
+    finally:
+        mesh_mod.visible_devices = visible
+    phase("shard_walls", seconds=walls, total_s=sum(walls.values()))
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--only", "shard"]):
+        raise SystemExit("usage: chip_smoke.py [--only shard]")
+    card, _ = probe(several=bool(argv))
     dev = torch.device("cuda")
     build()
     demo, fs = read_wav_file(str(DEMO))
     if fs != FS or demo.ndim != 2 or demo.shape[1] != 2:
         raise AssertionError(f"unexpected demo file: {demo.shape} @ {fs}")
+    mono = demo.mean(axis=1, keepdims=True).astype(np.float32)
+    if argv:  # phase 12 alone, over every visible card
+        WORK.mkdir(parents=True, exist_ok=True)
+        _, wall = timed_phase(lambda: shard(demo, mono, WORK))
+        shutil.rmtree(WORK, ignore_errors=True)
+        phase("shard_only", seconds=wall)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                                  "count": torch.cuda.device_count()}}),
+              flush=True)
+        return 0
     k1 = check_k1(dev, demo.shape[0])
     k2 = check_k2(dev, demo)
     k2["file_grid"] = check_k2_file_grid(dev, demo)
@@ -1873,7 +2177,6 @@ def main():
         file_mode(preset, DEFAULT_PRESETS[preset], demo, fs, need=need)
     for preset in LAST_SLICE_PRESETS:
         file_mode(preset, DEFAULT_PRESETS[preset], demo, fs)
-    mono = demo.mean(axis=1, keepdims=True).astype(np.float32)
     # The preset's threshold, and -20 dB (a JAX parity case), where the
     # demo's bins split about evenly and far more sit near the threshold.
     for threshold_db in (DEFAULT_PRESETS["Clean Noise Removal"][0]["params"]["threshold_db"], -20):
@@ -1928,6 +2231,10 @@ def main():
                      ("mesh", lambda: mesh(mono))):
         _, walls[step] = timed_phase(fn)
     phase("serving_walls", seconds=walls, total_s=sum(walls.values()))
+
+    # Phase 12: sharding over several cards (the one-card form here).
+    _, wall = timed_phase(lambda: shard(demo, mono, WORK))
+    phase("shard_wall", seconds=wall)
     shutil.rmtree(WORK, ignore_errors=True)
 
     print(json.dumps({"kernels": [
@@ -1942,8 +2249,8 @@ def main():
         {"name": "comb_chunks", "route": "cuda", "source": "aefs_tpu_torch/csrc/comb.cu",
          "replaces": "aefs_tpu/ops/pallas/comb.py:62", "launches": LAUNCHES["comb_chunks"], **k4},
     ]}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": 1}}),
-          flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

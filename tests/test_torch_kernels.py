@@ -777,3 +777,49 @@ def test_step_kernels_file_length_slots_bitwise(dev, kind):
         one_st, one_y = kern({k: v[f] for k, v in st.items()}, p, x[f])
         assert torch.equal(got[1][f], one_y)
         assert all(torch.equal(got[0][k][f], one_st[k]) for k in one_st)
+
+
+@pytest.fixture(scope="module")
+def dev1(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: launches on cuda:1 while cuda:0 is current")
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("kind", ["octaver_step", "chorus_step", "comb_sums"])
+def test_kernels_launch_on_the_operands_card(dev1, kind):
+    """A sharded step launches each kernel on its operands' card, whichever
+    card is current: K1, K3 and K2 on cuda:1 with cuda:0 current give the
+    results of their plain versions run with cuda:1 current (K1 and K3 bit
+    for bit), one launch each, and leave cuda:0 current."""
+    from aefs_tpu_torch.ops.kernels import comb, resample
+
+    if kind == "comb_sums":
+        c = 1408
+        x, g, ht = _comb_operands(dev1, LAGS8, 2, 20000, 0.05)
+        with torch.cuda.device(dev1):
+            want = comb.comb_sums_plain(x, g, ht, LAGS8, c, REVERB_SIDES, 2)
+        with torch.cuda.device(0):
+            before = comb.comb_sums.launches
+            got = comb.comb_sums(x, g, ht, LAGS8, c, REVERB_SIDES, 2, 0.05)
+            assert comb.comb_sums.launches == before + 1
+            assert torch.cuda.current_device() == 0
+        torch.cuda.synchronize(dev1)
+        assert got[0].device == dev1
+        assert float((got[0] - want[0]).abs().max()) < 1e-5
+        assert float((got[1] - want[1]).abs().max()) < 1e-4
+        return
+    if kind == "octaver_step":
+        run, step, plain, args = (_octaver_run, resample.octaver_step,
+                                  resample.octaver_step_plain, (256, (-12.0,) * 3 + (-5.0,) * 3, 4))
+    else:
+        run, step, plain, args = (_chorus_run, resample.chorus_step,
+                                  resample.chorus_step_plain, (256, (0.6,) * 3 + (4.0,) * 3, 5))
+    with torch.cuda.device(dev1):
+        ref = run(plain, dev1, *args)
+    with torch.cuda.device(0):
+        got = run(step, dev1, *args)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev1)
+    assert got[2] == 6 and ref[2] == 0
+    _assert_runs_bitwise(got, ref)
