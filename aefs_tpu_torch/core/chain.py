@@ -7,8 +7,14 @@ smoothed parameter currents — lives in one state tree:
 
     state, y = chain.process_block(state, targets, x)
 
-PyTorch runs eagerly, so there is no compile cache: a block is a sequence
-of tensor ops (and kernel launches) issued on the chain's device.
+PyTorch runs eagerly: ``process_block`` is a sequence of tensor ops (and
+kernel launches) issued on the chain's device.  The compiled entry points
+of the JAX package have one counterpart, ``packed_step`` (``step``): a
+cached ``core/packing.py:PackedRunner`` over ``process_block`` that, on the
+card, replays the block step as one captured CUDA graph.  ``warmup``
+captures it, ``file_fn`` and ``process_array(fast=False)`` replay it block
+by block, and ``release`` drops it (the chain -> runner -> bound method ->
+chain cycle that ``gc.disable()`` would never collect).
 
 The serving pool steps many streams at once through the same
 ``process_block`` with a leading slot axis written out (JAX vmaps it):
@@ -69,6 +75,7 @@ class Chain:
         self.effects = tuple(effects)  # ordered (effect_id, model)
         self.device = torch.device(device)
         self.config_seeds = {}  # {effect_id: params} captured by build_chain
+        self._runners = {}  # cached step runners (packed_step); release() drops them
 
     # -- state ----------------------------------------------------------
     def init_state(self, configs=None):
@@ -113,6 +120,13 @@ class Chain:
         fx = tuple(model.map_state(put, lambda b, s: b, bst, sst)
                    for (eid, model), bst, sst in zip(self.effects, batched["fx"], single["fx"]))
         return {"fx": fx, "params": tree_map(put, batched["params"], single["params"])}
+
+    def graft_slot_state_(self, batched, single, slot: int):
+        """``graft_slot_state`` in place: ``single``'s leaves are copied into
+        row ``slot`` of ``batched``'s leaves (views of a runner's static
+        groups, say); LOCKSTEP_STATE leaves are left as they are."""
+        _map_axes(lambda ax, b, s: None if ax is None else b[slot].copy_(s),
+                  self.state_axes(), batched, single)
 
     def split_slots(self, batched, devices, axes=None):
         """A batched state (or, with ``axes=0``, a targets tree) as one tree
@@ -202,12 +216,79 @@ class Chain:
         0-dim params (``render_batch``)."""
         return self._process(state, targets, x, "process_file")
 
+    # -- the compiled entry points ----------------------------------------
+    def label(self) -> str:
+        """The chain's effect types in order, as errors name the chain."""
+        return " -> ".join(model.kind for _, model in self.effects) or "an empty chain"
+
+    def packed_step(self):
+        """The cached ``PackedRunner`` over ``process_block`` at this chain's
+        blocksize: one static buffer per state dtype and one for the
+        targets, x (ci, blocksize); on the card one captured CUDA graph per
+        step.  This is the engine's hot path."""
+        key = ("packed_step", self.blocksize)
+        runner = self._runners.get(key)
+        if runner is None:
+            from aefs_tpu_torch.core.packing import PackedRunner
+
+            runner = self._runners[key] = PackedRunner(
+                self.process_block, self.init_state(), self.targets({}),
+                x_shape=(self.ci, self.blocksize), device=self.device,
+                label=self.label())
+        return runner
+
+    def step(self):
+        """The single-block step: the same cached runner as ``packed_step``."""
+        return self.packed_step()
+
+    def file_fn(self, n_blocks: int):
+        """(state, targets, blocks (n_blocks, ci, N)) -> (state, ys (n_blocks,
+        co, N)): the step runner replayed block by block (JAX scans the
+        jitted block step)."""
+        runner = self.packed_step()
+
+        def run(state, targets, blocks):
+            if blocks.shape[0] != n_blocks:
+                raise ValueError(f"{blocks.shape[0]} blocks where the file has {n_blocks}")
+            runner.write_state(runner.pack_state(state))
+            runner.write_targets(runner.pack_targets(targets))
+            ys = torch.empty((n_blocks, self.co, self.blocksize), dtype=torch.float32,
+                             device=self.device)
+            for k in range(n_blocks):
+                runner.write_x(blocks[k])
+                ys[k].copy_(runner.run()[1])
+            return runner.unpack_state(), ys
+
+        return run
+
+    def release(self):
+        """Drop the cached runners, their graphs and the graphs' memory
+        pools.  The cache holds runners over this chain's bound methods
+        (chain -> runner -> method -> chain), a cycle the serving processes
+        (``gc.disable()``) never collect: callers that replace or finish
+        with a chain release it.  A holder of a released chain stays
+        correct; its next step builds and captures a new runner."""
+        for runner in self._runners.values():
+            runner.release()
+        self._runners.clear()
+
+    def warmup(self, state, targets):
+        """Warm up and capture the step runner (two dummy blocks, then the
+        capture, on the card; ``PackedRunner.prepare``) with ``state`` and
+        ``targets`` in its buffers; returns a fresh ``init_state()``, as the
+        JAX package does (its warm-up donates the state)."""
+        runner = self.packed_step()
+        runner.write_state(runner.pack_state(state))
+        runner.write_targets(runner.pack_targets(targets))
+        runner.prepare()
+        return self.init_state()
+
     def process_array(self, state, targets, audio, fast: bool = False):
         """Process a whole (frames, ci) array on the chain's device.
 
-        fast=False: the block step over consecutive blocks (works from any
-        carried state).  fast=True: one ``process_whole`` pass — requires
-        fresh state (file mode).
+        fast=False: the step runner over consecutive blocks (``file_fn``;
+        works from any carried state).  fast=True: one ``process_whole``
+        pass — requires fresh state (file mode).
 
         Returns (new_state, (frames, co) float32 numpy).  Frames are padded
         up to a multiple of the blocksize; the pad is trimmed."""
@@ -217,16 +298,15 @@ class Chain:
         pad = (-frames) % n
         if pad:
             audio = np.concatenate([audio, np.zeros((pad, audio.shape[1]), np.float32)])
-        x = torch.from_numpy(np.ascontiguousarray(audio.T)).to(self.device)  # (ci, N)
         if fast:
+            x = torch.from_numpy(np.ascontiguousarray(audio.T)).to(self.device)  # (ci, N)
             state, y = self.process_whole(state, targets, x)
-        else:
-            ys = []
-            for start in range(0, x.shape[-1], n):
-                state, yb = self.process_block(state, targets, x[:, start : start + n])
-                ys.append(yb)
-            y = torch.cat(ys, -1) if ys else torch.zeros((self.co, 0), device=self.device)
-        return state, y.cpu().numpy().T[:frames]
+            return state, y.cpu().numpy().T[:frames]
+        blocks = torch.from_numpy(np.ascontiguousarray(
+            audio.T.reshape(self.ci, -1, n).transpose(1, 0, 2))).to(self.device)
+        state, ys = self.file_fn(blocks.shape[0])(state, targets, blocks)
+        out = ys.permute(1, 0, 2).reshape(self.co, -1).cpu().numpy().T
+        return state, out[:frames]
 
 
 def build_chain(effects_config, fs, blocksize, channels_in=1, channels_out=2,

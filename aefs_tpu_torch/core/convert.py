@@ -9,6 +9,11 @@ stay int32, and the ring mod's and bitcrusher's uint32 phase accumulators
 (``acc``) stay uint32 bit for bit: the port keeps them as ``torch.uint32``
 and does their arithmetic in int64 (models/ringmod.py).
 
+The packed form of a state (``core/packing.py``: one flat buffer per
+dtype, leaves in JAX's order) crosses too: ``groups_to_numpy`` and
+``groups_from_numpy`` carry the groups of JAX's ``PackedRunner.pack_state``
+into the port's runner and back.
+
 A checkpoint stores the leaves as a flat list, ``leaf_{i}`` in the order
 ``jax.tree.flatten`` gives: dict keys sorted, tuples and lists in order.
 The port's trees keep insertion order, which differs in most chains, so
@@ -32,6 +37,17 @@ def state_from_numpy(tree, device):
 def state_to_numpy(state):
     """The port's state tree -> the same tree with numpy leaves."""
     return tree_map(lambda t: t.detach().cpu().numpy(), state)
+
+
+def groups_from_numpy(groups, device):
+    """Packed groups as numpy arrays (JAX's ``PackedRunner.pack_state``
+    converted) -> the port's groups on ``device``, dtypes kept."""
+    return tuple(torch.tensor(np.asarray(g), device=device) for g in groups)
+
+
+def groups_to_numpy(groups):
+    """The port's packed groups -> numpy arrays, which JAX's runner takes."""
+    return tuple(g.detach().cpu().numpy() for g in groups)
 
 
 def flatten_like_jax(tree):

@@ -6,14 +6,21 @@ stream and live file stream, session checkpoints, uploaded IRs and learned
 noise profiles, and whole-file processing (one file, or a batch through
 ``render_batch``).
 
-- ``update_param`` only rewrites the target map; the smoothed glide
-  happens inside the block step.
-- A rebuild builds the new chain, warms it with two dummy blocks on a
-  throw-away state, then swaps (chain, state, targets) under a lock.
+- The streaming step is the chain's step runner (``Chain.packed_step``,
+  core/packing.py): on the card one captured CUDA graph per chain, its
+  state and targets in static device buffers, the block carried in
+  through pinned staging and the output read from the static ``y``.
+- ``update_param`` rewrites the target map and writes the packed targets
+  into the runner's static target buffer; the smoothed glide happens
+  inside the block step.
+- A rebuild builds the new chain, warms up and captures its runner off the
+  audio path, then swaps (chain, runner) under a lock and releases the old
+  chain.
 - File mode renders through a fresh chain in one whole-signal pass.
 
-Entry points run on the card unless the caller passes ``device="cpu"``;
-there is no fallback.
+Entry points run on the card unless the caller passes ``device="cpu"``,
+with that card current (``utils/platform.py:device_scope``); there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -36,9 +43,10 @@ from aefs_tpu_torch.core.config import (
     SAMPLE_RATE,
 )
 from aefs_tpu_torch.core.fileopts import file_static_overrides
+from aefs_tpu_torch.core.packing import Staging
 from aefs_tpu_torch.engine.wavio import decode_wav, encode_wav_int16
 from aefs_tpu_torch.utils.metrics import BlockTimer
-from aefs_tpu_torch.utils.platform import require_device
+from aefs_tpu_torch.utils.platform import device_scope, require_device
 
 try:  # optional, absent in server images (reference engine.py:12-15)
     import sounddevice as sd
@@ -70,11 +78,12 @@ def process_offline(chain_config, audio, fs, superblock=FILE_SUPERBLOCK,
     static = file_static_overrides(chain_config)
     for eid, extra in (extra_static or {}).items():
         static[eid] = {**static.get(eid, {}), **extra}
-    chain, state, targets_map = build_chain(
-        chain_config, fs, superblock, channels_in=1, channels_out=2,
-        static_overrides=static, device=device,
-    )
-    _, out = chain.process_array(state, chain.targets(targets_map), mono, fast=True)
+    with device_scope(require_device(device)):
+        chain, state, targets_map = build_chain(
+            chain_config, fs, superblock, channels_in=1, channels_out=2,
+            static_overrides=static, device=device,
+        )
+        _, out = chain.process_array(state, chain.targets(targets_map), mono, fast=True)
     return mono, np.clip(out, -1.0, 1.0)
 
 
@@ -120,30 +129,37 @@ def render_batch(chain_config, audios, fs, superblock=FILE_SUPERBLOCK,
     for i, m in enumerate(monos):
         x[i, 0, : m.shape[0]] = m
 
-    chain, one, targets_map = build_chain(
-        chain_config, fs, superblock, channels_in=1, channels_out=2,
-        static_overrides=file_static_overrides(chain_config), device=devices[0],
-    )
+    with device_scope(devices[0]):
+        chain, one, targets_map = build_chain(
+            chain_config, fs, superblock, channels_in=1, channels_out=2,
+            static_overrides=file_static_overrides(chain_config), device=devices[0],
+        )
     span = len(monos) // len(devices)
     ys = []
     for i, dev in enumerate(devices):
-        part = chain.on_device(dev)
-        st = one if part is chain else part.init_state()
-        state = {"fx": part.batch_state(st, span)["fx"], "params": st["params"]}
-        _, y = part.process_whole(state, part.targets(targets_map),
-                                  torch.from_numpy(x[i * span:(i + 1) * span]).to(dev))
+        with device_scope(dev):
+            part = chain.on_device(dev)
+            st = one if part is chain else part.init_state()
+            state = {"fx": part.batch_state(st, span)["fx"], "params": st["params"]}
+            _, y = part.process_whole(state, part.targets(targets_map),
+                                      torch.from_numpy(x[i * span:(i + 1) * span]).to(dev))
         ys.append(y)
     # Read back file by file: a (2, Lp) buffer is reused by the host's
     # allocator, where one (F, 2, Lp) array is fresh pages every call.
-    return [np.clip(ys[i // span][i % span].cpu().numpy()[:, : m.shape[0]], -1.0, 1.0).T.copy()
-            for i, m in enumerate(monos[:n_real])]
+    outs = []
+    for i, m in enumerate(monos[:n_real]):
+        y = ys[i // span][i % span]
+        with device_scope(y.device):
+            outs.append(np.clip(y.cpu().numpy()[:, : m.shape[0]], -1.0, 1.0).T.copy())
+    return outs
 
 
 class _Pipeline:
-    """Depth-1 readback for ``process_stream_block_pipelined``: block k's
-    output goes into one of two pinned host buffers with a non-blocking
-    copy and a CUDA event; the next call returns it after waiting on that
-    event only.  On the CPU the output tensor itself is kept."""
+    """Readback of a block's output: it goes into one of two pinned host
+    buffers with a non-blocking copy and a CUDA event, and ``collect``
+    waits on that event only.  The pipelined step collects block k-1's
+    while block k runs; the synchronous step (its own instance) collects
+    at once.  On the CPU the output tensor itself is kept."""
 
     def __init__(self, device):
         self.cuda = device.type == "cuda"
@@ -207,8 +223,11 @@ class AudioEngine:
         # is_running, so it never clears the flag ahead of the publication.
         self._publish_lock = threading.Lock()
         self._targets_map = {}
+        self._runner = None  # the chain's step runner, swapped with the chain
         self._pending = None  # depth-1 pipeline: (chain, readback handle)
         self._pipeline = _Pipeline(self.device)
+        self._readback = _Pipeline(self.device)  # the synchronous step's
+        self._staging = Staging((CHANNELS_IN, BLOCKSIZE), self.device)
         # Uploaded convreverb IRs: {effect_id: ((ch, n) float32, ir_fs)};
         # learned spectral noise profiles: {effect_id: (bins,) float32}.
         # Both ride session checkpoints and are pruned when their effect
@@ -221,17 +240,28 @@ class AudioEngine:
         self.metrics = BlockTimer(self.current_sample_rate, BLOCKSIZE)
         self.build_chain([])
 
+    @property
+    def chain_state(self):
+        """The live state tree: copies of the step runner's static groups
+        (None without a chain).  Assigning a tree writes it into them."""
+        with self._lock:
+            runner = self._runner
+        return None if runner is None else runner.unpack_state()
+
+    @chain_state.setter
+    def chain_state(self, state):
+        with self._step_lock, self._lock, device_scope(self.device):
+            self._runner.write_state(self._runner.pack_state(state))
+
     # -- chain lifecycle (engine.py:38-65) ------------------------------
-    def _warm(self, chain, targets):
-        """Run two dummy blocks on a throw-away state and wait for them, so
-        the first live block after a rebuild does not pay kernel loading
-        and cuFFT/cuBLAS plan setup (core.py:131-136)."""
-        st = chain.init_state()
-        dummy = torch.zeros((chain.ci, chain.blocksize), dtype=torch.float32,
-                            device=self.device)
-        for _ in range(2):
-            st, y = chain.process_block(st, targets, dummy)
-        y.cpu()
+    def _warm_runner(self, chain, state, targets):
+        """The chain's step runner with ``state`` and ``targets`` in its
+        static buffers, warmed up (two dummy blocks) and captured off the
+        audio path, so the first live block after a rebuild pays neither
+        kernel loading, cuFFT plan setup nor the capture (core.py:131-136).
+        On the card a failure raises, naming the chain's effects."""
+        chain.warmup(state, targets)
+        return chain.packed_step()
 
     def _build(self, effects_config):
         """(chain, fresh state, targets map) for ``effects_config`` at the
@@ -243,16 +273,24 @@ class AudioEngine:
             device=self.device,
         )
 
-    def _swap(self, chain, state, targets_map, targets, config):
+    def _swap(self, chain, runner, targets_map, config):
         with self._lock:
+            old = self.chain
             self.chain = chain
             # Swapped together with the chain, so readers holding _lock
             # always see a (chain, config) pair that belongs together.
             self.last_chain_config = config
-            self.chain_state = state
+            self._runner = runner
             self._targets_map = targets_map
-            self._targets = targets
             self._pending = None  # an in-flight block belongs to the old chain
+        if old is not None and old is not chain:
+            # The serving processes run with gc disabled: break the old
+            # chain's runner cycle or it, its graph and the graph's memory
+            # pool leak on every rebuild (Chain.release).  A step that took
+            # the old runner before the swap holds the step lock until its
+            # output's readback is enqueued: the release waits for it.
+            with self._step_lock:
+                old.release()
 
     def _ir_overrides(self, effects_config, fs):
         """Static-override map carrying uploaded IRs and learned noise
@@ -356,18 +394,23 @@ class AudioEngine:
         return 20.0 * float(np.log10(floor / (2 * BLOCKSIZE / 4)))
 
     def build_chain(self, effects_config):
-        chain, state, targets_map = self._build(effects_config)
-        targets = chain.targets(targets_map)
-        self._warm(chain, targets)
-        self._swap(chain, state, targets_map, targets, effects_config)
+        with device_scope(self.device):
+            chain, state, targets_map = self._build(effects_config)
+            runner = self._warm_runner(chain, state, chain.targets(targets_map))
+        self._swap(chain, runner, targets_map, effects_config)
 
     def update_param(self, effect_id: str, param_name: str, value: float):
         """Route a live parameter change (engine.py:131-145): rewrite the
         target; the audio path glides toward it one clamped step per
-        block.  Unknown ids/names print the reference's warnings."""
+        block.  Unknown ids/names print the reference's warnings.
+
+        The targets are built and packed outside the locks (an upload),
+        then copied into the runner's static target buffer under the step
+        lock: the captured graph reads that buffer, so a swapped-in new
+        tensor would never reach it."""
         with self._param_lock:
             with self._lock:
-                chain = self.chain
+                chain, runner = self.chain, self._runner
                 targets_map = {k: dict(v) for k, v in self._targets_map.items()}
             models = dict(chain.effects)
             if effect_id not in models:
@@ -379,17 +422,18 @@ class AudioEngine:
                       f"'{effect_id}' could not be updated")
                 return
             targets_map.setdefault(effect_id, {})[param_name] = float(value)
-            targets = chain.targets(targets_map)
-            with self._lock:
-                if self.chain is chain:
-                    self._targets_map = targets_map
-                    self._targets = targets
-                    # File mode rebuilds from the config: keep it in sync
-                    # with the live (clamped) value.
-                    for cfg in self.last_chain_config:
-                        if cfg.get("effect_id") == effect_id:
-                            cfg.setdefault("params", {})[param_name] = spec.clamp(value)
-                            break
+            with device_scope(self.device):
+                tgroups = runner.pack_targets(chain.targets(targets_map))
+                with self._step_lock, self._lock:
+                    if self.chain is chain:
+                        runner.write_targets(tgroups)
+                        self._targets_map = targets_map
+                        # File mode rebuilds from the config: keep it in sync
+                        # with the live (clamped) value.
+                        for cfg in self.last_chain_config:
+                            if cfg.get("effect_id") == effect_id:
+                                cfg.setdefault("params", {})[param_name] = spec.clamp(value)
+                                break
 
     # -- session checkpoint/resume (engine/checkpoint.py) ----------------
     def save_session(self, path: str) -> str:
@@ -399,14 +443,17 @@ class AudioEngine:
         from aefs_tpu_torch.core.convert import state_to_numpy
         from aefs_tpu_torch.engine.checkpoint import save_session
 
-        # Snapshot and copy to the host under the step lock: no step can be
-        # half-published while the state is read.
-        with self._step_lock:
-            with self._lock:
-                chain, state, tmap = self.chain, self.chain_state, self._targets_map
-                irs = dict(self.custom_irs)
-                profiles = dict(self.noise_profiles)
-                fs = self.current_sample_rate
+        # Snapshot under the step lock (the runner's copies of its static
+        # groups, enqueued before any later step rewrites them); the copy to
+        # the host follows outside it.
+        with device_scope(self.device):
+            with self._step_lock:
+                with self._lock:
+                    chain, runner, tmap = self.chain, self._runner, self._targets_map
+                    irs = dict(self.custom_irs)
+                    profiles = dict(self.noise_profiles)
+                    fs = self.current_sample_rate
+                state = runner.unpack_state()
             state = state_to_numpy(state)
         # The snapshotted chain's own config, never last_chain_config: a
         # concurrent rebuild may already have replaced it, and a
@@ -439,37 +486,35 @@ class AudioEngine:
         }
         self.custom_irs.update(irs)
         self.noise_profiles.update(profiles)
-        chain, _, _ = self._build(chain_config)
-        targets = chain.targets(targets_map)
-        state = rebuild_state(chain.init_state())
-        self._warm(chain, targets)
-        self._swap(chain, state, targets_map, targets, chain_config)
+        with device_scope(self.device):
+            chain, _, _ = self._build(chain_config)
+            state = rebuild_state(chain.init_state())
+            runner = self._warm_runner(chain, state, chain.targets(targets_map))
+        self._swap(chain, runner, targets_map, chain_config)
         return chain_config
 
     # -- block streaming ------------------------------------------------
     def _step_held(self, in_block):
-        """One block step; the caller holds the step lock -> (the chain it
-        ran on, y)."""
-        x = torch.from_numpy(np.ascontiguousarray(np.asarray(in_block, np.float32).T))
-        x = x.to(self.device)
+        """One block step; the caller holds the step lock and has the card
+        current -> (the chain it ran on, y).  The block goes through
+        pinned staging into the runner's static x (no wait on the stream),
+        then the runner steps: one graph replay on the card.  A chain
+        swapped mid-block keeps its own state, as in the reference's benign
+        rebuild race."""
         with self._lock:
-            chain, state, targets = self.chain, self.chain_state, self._targets
-        state, y = chain.process_block(state, targets, x)
-        with self._lock:
-            # A chain swapped mid-block drops this block's state, as in the
-            # reference's benign rebuild race.
-            if self.chain is chain:
-                self.chain_state = state
-        return chain, y
+            chain, runner = self.chain, self._runner
+        self._staging.put(np.asarray(in_block, np.float32).T, runner.x)
+        return chain, runner.run()[1]
 
     def process_stream_block(self, in_block: np.ndarray) -> np.ndarray:
         """One hot-path block: (N, ci) float32 in -> (N, co) float32 out.
         Timed by ``self.metrics``; feeds the plot queues like the
         reference's PlotDataTap chain heads/tails (core.py:89-106)."""
-        with self.metrics.block():
+        with self.metrics.block(), device_scope(self.device):
             with self._step_lock:
                 _, y = self._step_held(in_block)
-            out = y.cpu().numpy().T
+                handle = self._readback.launch(y)
+            out = self._readback.collect(handle)
         self._tap_plots(in_block, out)
         return out
 
@@ -479,7 +524,7 @@ class AudioEngine:
         The host enqueues block k while the device finishes block k-1, and
         waits only on block k-1's readback.  Priming and a chain swap
         return one silent block."""
-        with self.metrics.block():
+        with self.metrics.block(), device_scope(self.device):
             with self._step_lock:
                 chain, y = self._step_held(in_block)
                 handle = self._pipeline.launch(y)
@@ -671,10 +716,15 @@ class AudioEngine:
             self._pending = None
 
     def close(self):
-        """End-of-session teardown: stop the streams and drop the chain."""
+        """End-of-session teardown: stop the streams, drop the chain and
+        release it (its runner's graph and memory pool), so the engine
+        frees by refcounting alone (the server disables gc)."""
         self.stop_stream()
         with self._lock:
-            self.chain, self.chain_state = None, None
+            chain, self.chain, self._runner = self.chain, None, None
+        if chain is not None:
+            with self._step_lock:
+                chain.release()
 
     # -- file mode (engine.py:67-129) -----------------------------------
     def process_file_array(self, audio: np.ndarray, fs: int):

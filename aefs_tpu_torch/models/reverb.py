@@ -26,6 +26,7 @@ from aefs_tpu_torch.ops.ringbuf import (
     delay_read,
     ring_push,
 )
+from aefs_tpu_torch.utils.platform import device_scope
 
 
 class Reverb(EffectModel):
@@ -85,6 +86,7 @@ class Reverb(EffectModel):
             )
         self._lags_f = torch.tensor(self.comb_lags[0] + self.comb_lags[1],
                                     dtype=torch.float32, device=self.device)
+        self._lag_tensors = {}  # (lags, device) -> the lags on that device
 
     def init_state(self):
         dev = self.device
@@ -130,7 +132,17 @@ class Reverb(EffectModel):
         if xb.shape[-1] <= self.comb_lmin:
             # Mic-sized blocks: every lag read predates the block.
             return comb_bank_block_static(hists, lps, xb, lags, g, damp)
-        return comb_bank_block(hists, lps, xb, lags, g, damp, self.comb_lmin)
+        return comb_bank_block(hists, lps, xb, self._lag_tensor(lags, xb.device), g, damp,
+                               self.comb_lmin)
+
+    def _lag_tensor(self, lags, device):
+        """``lags`` as a tensor on ``device``, made at the first long block and
+        kept: a step captured as a CUDA graph cannot upload, and the step
+        runner's warm-up comes before its capture (core/packing.py)."""
+        key = (lags, str(device))
+        if key not in self._lag_tensors:
+            self._lag_tensors[key] = torch.tensor(list(lags), device=device)
+        return self._lag_tensors[key]
 
     def _comb_bank_model_split(self, state, p, pre_out, g_all):
         """The streaming comb bank over the mesh's model axis: piece j of
@@ -149,12 +161,14 @@ class Reverb(EffectModel):
             dev = hist.device
             combs = range(j * r, (j + 1) * r)
             lags = tuple(self.comb_lags[side][c] for side in range(2) for c in combs)
-            g = g_all[..., [side * b + c for side in range(2) for c in combs]].to(dev)
-            xb = torch.repeat_interleave(pre_out.to(dev), r, -2)
-            y, h2, l2 = self._comb_step(hist.reshape(*lead_shape, 2 * r, -1),
-                                        lp.reshape(*lead_shape, 2 * r), xb, lags, g,
-                                        lead(p["damp"], 2).to(dev))
-            part = torch.stack([torch.sum(y[..., :r, :], -2), torch.sum(y[..., r:, :], -2)], -2)
+            with device_scope(dev):  # the part's work with its card current
+                g = g_all[..., [side * b + c for side in range(2) for c in combs]].to(dev)
+                xb = torch.repeat_interleave(pre_out.to(dev), r, -2)
+                y, h2, l2 = self._comb_step(hist.reshape(*lead_shape, 2 * r, -1),
+                                            lp.reshape(*lead_shape, 2 * r), xb, lags, g,
+                                            lead(p["damp"], 2).to(dev))
+                part = torch.stack([torch.sum(y[..., :r, :], -2),
+                                    torch.sum(y[..., r:, :], -2)], -2)
             part = part.to(pre_out.device)
             sums = part if sums is None else sums + part
             new_combs.append(h2.reshape(hist.shape))

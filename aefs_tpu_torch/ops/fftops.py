@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from aefs_tpu_torch.utils.platform import device_scope
+
 
 def hann_window(n_fft: int, device="cpu"):
     """Symmetric Hann window, identical to np.hanning."""
@@ -115,8 +117,9 @@ def partitioned_fft_conv_split(hist_parts, in_tail, x, ir_spectra, hop: int, ir_
     for j, part in enumerate(hist_parts):
         # Frame j*r + t of the history meets partition p-1-(j*r + t): the
         # part reversed meets partitions [p-(j+1)r, p-jr) in order.
-        window = torch.flip(torch.complex(part[..., 0, :, :], part[..., 1, :, :]), [-2])
-        acc = torch.sum(window * ir_on(part.device, p - (j + 1) * r, p - j * r), -2)
+        with device_scope(part.device):  # the part's work with its card current
+            window = torch.flip(torch.complex(part[..., 0, :, :], part[..., 1, :, :]), [-2])
+            acc = torch.sum(window * ir_on(part.device, p - (j + 1) * r, p - j * r), -2)
         acc = acc.to(x.device)
         y_spec = acc if y_spec is None else y_spec + acc
     y_spec = y_spec[..., None, :] + spec * ir_spectra[..., 0:1, :]

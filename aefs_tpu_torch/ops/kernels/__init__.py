@@ -14,10 +14,17 @@ raises.  A sharded step launches on every card from one thread: each
 wrapper makes its operands' card current around the call for PyTorch, and
 passes its index to the C entry, which makes it current for the library's
 own CUDA runtime before launching.
+
+Each wrapper counts its launches on its own ``launches`` attribute through
+``tick``.  A launch made while the calling thread captures a CUDA graph
+(``recording``) is recorded for that capture instead: the kernel did not
+run, and each replay of the graph adds the captured counts
+(``core/packing.py:PackedRunner``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,6 +47,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lib = None
 _lock = threading.Lock()
+_capture = threading.local()  # .record: {wrapper: launches} of this thread's capture
 
 
 def _nvcc() -> str:
@@ -121,3 +129,30 @@ def require_cuda_f32(name, t, shape=None):
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def tick(wrapper):
+    """Count one launch of ``wrapper``'s kernel: on ``wrapper.launches``,
+    or on the record of the capture this thread is making."""
+    record = getattr(_capture, "record", None)
+    if record is None:
+        wrapper.launches += 1
+    else:
+        record[wrapper] = record.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Record this thread's kernel launches in the yielded {wrapper:
+    launches} dict instead of counting them on the wrappers."""
+    record = _capture.record = {}
+    try:
+        yield record
+    finally:
+        _capture.record = None
+
+
+def credit(record):
+    """Count the launches of one replay of a captured ``record``."""
+    for wrapper, n in record.items():
+        wrapper.launches += n

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from aefs_tpu_torch.ops.kernels import check, library, require_cuda_f32, stream_ptr
+from aefs_tpu_torch.ops.kernels import check, library, require_cuda_f32, stream_ptr, tick
 
 # Tap budget for the static-h truncated-FIR damping: taps = J+1 with
 # J = ceil(-40/log2 h), so the cutoff is h <= 2^(-40/31) ~= 0.409; larger
@@ -198,7 +198,7 @@ def comb_sums(x, g, h, lags, c, side_of, n_sides, h_static=None):
             y.data_ptr(), ysum.data_ptr(), d_tail.data_ptr(), x.get_device(),
             stream_ptr(x.device))
     check(err, "comb_sums")
-    comb_sums.launches += 1
+    tick(comb_sums)
     return ysum, d_tail
 
 
@@ -235,7 +235,7 @@ def comb_chunks(x, g, h, lags, c, side_of):
             ctypes.addressof(lags_c), ctypes.addressof(side_c), b, c, m,
             y.data_ptr(), damped.data_ptr(), x.get_device(), stream_ptr(x.device))
     check(err, "comb_chunks")
-    comb_chunks.launches += 1
+    tick(comb_chunks)
     return y, damped
 
 

@@ -33,7 +33,7 @@ import torch
 from aefs_tpu_torch.core.params import lead
 from aefs_tpu_torch.ops.dsphase import (
     _phase_fold, _phase_ramp, _split12, _stride_levels, _two_sum, ds_exp2_div12)
-from aefs_tpu_torch.ops.kernels import check, library, stream_ptr
+from aefs_tpu_torch.ops.kernels import check, library, stream_ptr, tick
 from aefs_tpu_torch.ops.ringbuf import fractional_read_cubic, ring_push
 
 _F32 = torch.float32
@@ -197,7 +197,7 @@ def octaver_step(state, p, x):
             state["semi_prev"].data_ptr(), state["step_hi"].data_ptr(),
             state["step_lo"].data_ptr(), buf.data_ptr(), dev, stream_ptr(x.device))
     check(err, "octaver_step")
-    octaver_step.launches += 1
+    tick(octaver_step)
     y, new_hist, tail = buf.split_with_sizes((s * c * n, s * size, 6 * s))
     # Rows of (6, S), or six 0-dim scalars without slot dims; no further
     # views, as each costs host time on every block.
@@ -268,7 +268,7 @@ def chorus_step(state, p, x, fs):
             p["mix"].data_ptr(), p["spread"].data_ptr(), state["ph_hi"].data_ptr(),
             state["ph_lo"].data_ptr(), buf.data_ptr(), dev, stream_ptr(x.device))
     check(err, "chorus_step")
-    chorus_step.launches += 1
+    tick(chorus_step)
     y, new_hist, tail = buf.split_with_sizes((s * c * n, s * c * hl, 2 * s))
     ph_hi, ph_lo = (tail.view(2, s) if slots else tail).unbind()
     return ({"hist": new_hist.view(*slots, c, hl), "ph_hi": ph_hi, "ph_lo": ph_lo},

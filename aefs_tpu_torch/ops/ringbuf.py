@@ -127,19 +127,19 @@ def delay_read(hist, x, d_samples):
     return _take_last(ext, idx)
 
 
-def comb_bank_block(hists, lps, x, lags, g, h, min_lag: int):
+def comb_bank_block(hists, lps, x, lag_t, g, h, min_lag: int):
     """A bank of damped feedback combs sharing one input, for blocks
     longer than the shortest lag (fixed point: corrections propagate one
     lag per pass).
 
     hists: (..., B, Lmax) padded chronological windows; lps: (..., B)
     damping states; x: (..., N) shared or (..., B, N) per-comb input;
-    lags: static ints (B,); g: (..., B); h: 0-dim or (..., 1, 1).  Returns
-    (y, new_hists, new_lps)."""
+    lag_t: the static lags (B,) as an integer tensor on x's device (made
+    once by the caller: a captured step cannot upload them); g: (..., B);
+    h: 0-dim or (..., 1, 1).  Returns (y, new_hists, new_lps)."""
     b, lmax = hists.shape[-2:]
     n = x.shape[-1]
     shape = hists.shape[:-1] + (n,)
-    lag_t = torch.tensor(list(lags), device=x.device)
     ext = torch.cat([hists, torch.zeros(shape, device=x.device)], -1)
     base_hist = _take_last(ext, (lmax - lag_t)[:, None]
                            + torch.arange(n, device=x.device))  # valid where n < lag

@@ -38,10 +38,12 @@ def _matmul(a, b):
 
 
 def _f32(v, like):
-    """``v`` as a float32 tensor on ``like``'s device (tensors pass through)."""
+    """``v`` as a float32 tensor on ``like``'s device (tensors pass through).
+    A number is filled on the device, never uploaded: the streaming step
+    is captured as a CUDA graph (core/packing.py)."""
     if isinstance(v, torch.Tensor):
         return v.to(torch.float32)
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
 def _shift(t, s: int, fill=0.0):

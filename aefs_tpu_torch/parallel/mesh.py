@@ -33,7 +33,8 @@ import torch
 
 from aefs_tpu_torch.core.chain import slot_ranges
 from aefs_tpu_torch.models.base import ModelShards
-from aefs_tpu_torch.utils.platform import require_device, same_device, select_device
+from aefs_tpu_torch.utils.platform import (
+    device_scope, require_device, same_device, select_device)
 
 # JAX's model-axis rule (aefs_tpu/parallel/mesh.py:_state_shardings), by
 # state key: (least ndim of the batched leaf, the axis split over model).
@@ -201,22 +202,24 @@ class ShardedStreams:
             for i, ((lo, hi), chain, row) in enumerate(zip(self.ranges, self.chains,
                                                            self.mesh.devices)):
                 dev = row[0]
-                if per_stream_targets:
-                    tg = targets[i]
-                else:
-                    tg = tuple({k: v.to(dev).expand(hi - lo).contiguous() for k, v in t.items()}
-                               for t in targets)
-                st, y = chain.process_block(state.shards[i], tg, x[lo:hi].to(dev))
-                new.append(st)
-                ys.append(y)
-                peaks.append(y.abs().amax())
+                with device_scope(dev):  # each shard's work with its card current
+                    if per_stream_targets:
+                        tg = targets[i]
+                    else:
+                        tg = tuple({k: v.to(dev).expand(hi - lo).contiguous()
+                                    for k, v in t.items()} for t in targets)
+                    st, y = chain.process_block(state.shards[i], tg, x[lo:hi].to(dev))
+                    new.append(st)
+                    ys.append(y)
+                    peaks.append(y.abs().amax())
             # The counterpart of the collectives XLA inserts: every shard's
             # output and max gathered on the mesh's first device, in order.
             first = self.mesh.device
-            peak = peaks[0].to(first)
-            for p in peaks[1:]:
-                peak = torch.maximum(peak, p.to(first))
-            y = torch.cat([y.to(first) for y in ys]) if len(ys) > 1 else ys[0]
+            with device_scope(first):
+                peak = peaks[0].to(first)
+                for p in peaks[1:]:
+                    peak = torch.maximum(peak, p.to(first))
+                y = torch.cat([y.to(first) for y in ys]) if len(ys) > 1 else ys[0]
             return ShardedState(new, self), y, peak
 
         return step

@@ -21,10 +21,15 @@ x (S, 1, N), every state leaf (S, ...) but the lockstep counters, and
 
 One step launches each kernel of the chain once for all S slots (the
 octaver's K1 and the chorus's K3 have a slot grid), so the launch count
-per step does not grow with S.  ``shard=True`` splits the slot axis over
-every visible card (``parallel/mesh.py:visible_devices``): each card holds
-a contiguous slot range with its own chain and state, and a step launches
-each card's share in turn, once per card.
+per step does not grow with S.  On the card that step is one captured CUDA
+graph (``core/packing.py:PackedRunner`` over ``HybridPacker`` groups: the
+big rings stand alone, the small leaves share one buffer per dtype); the
+blocks and the (P, S) targets reach its static buffers through pinned
+staging, and a slot reset is grafted into them in place.  ``shard=True``
+splits the slot axis over every visible card
+(``parallel/mesh.py:visible_devices``): each card holds a contiguous slot
+range with its own chain, state and graph, and a step replays each card's
+graph in turn, with that card current.
 
 Protocol (additive; one connection per session):
 
@@ -56,6 +61,7 @@ import numpy as np
 import torch
 
 from aefs_tpu_torch.core.chain import build_chain, slot_ranges
+from aefs_tpu_torch.core.packing import HybridPacker, PackedRunner, Staging
 from aefs_tpu_torch.core.config import (
     BLOCKSIZE,
     CHANNELS_IN,
@@ -65,7 +71,7 @@ from aefs_tpu_torch.core.config import (
     WS_MAX_MESSAGE,
 )
 from aefs_tpu_torch.parallel import mesh
-from aefs_tpu_torch.utils.platform import require_device, select_device
+from aefs_tpu_torch.utils.platform import device_scope, require_device, select_device
 
 try:
     import websockets as ws
@@ -97,6 +103,22 @@ def dict_copy(m):
     return {k: dict(v) for k, v in m.items()}
 
 
+def _pool_step(chain, trows):
+    """A shard's step ``fn(state, tflat, x)`` for its runner: the rows of
+    the (P, S/n) target buffer are the chain's (S/n,) targets.  Closes over
+    the chain and the row map, never over the pool: the serving process
+    runs with gc disabled, and a pool -> runner -> fn -> pool cycle would
+    never be freed."""
+    effects = chain.effects
+
+    def step(state, tflat, x):
+        targets = tuple({name: tflat[trows[(i, name)]] for name in model.PARAMS}
+                        for i, (eid, model) in enumerate(effects))
+        return chain.process_block(state, targets, x)
+
+    return step
+
+
 class _Readback:
     """Depth-1 readback of a step's per-shard (S/n, co, N) outputs as one
     (S, co, N) array.  On the card each shard's copy goes into its slot
@@ -122,9 +144,10 @@ class _Readback:
         self.next ^= 1
         events = []
         for (lo, hi), y in zip(self.ranges, ys):
-            buf[lo:hi].copy_(y, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(y.device))
+            with device_scope(y.device):
+                buf[lo:hi].copy_(y, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(y.device))
             events.append(ev)
 
         def collect():
@@ -139,9 +162,9 @@ class SessionPool:
     """Batched multi-session runtime: slot allocation, per-slot targets,
     one batched chain step shared by every session.
 
-    With ``shard=True`` over n devices, ``self.state`` holds n trees (slot
-    range i of S/n on device i) and each step runs n chain steps; with one
-    device it holds one tree.
+    Each of the n devices (one without ``shard``) has a step runner over
+    its slot range of S/n (``self._runners``; on the card a captured
+    graph), and ``self.state`` holds each runner's static state groups.
 
     Locking is two-tier so control ops never wait on a device step:
     ``_ctrl_lock`` guards the HOST-side mutable maps (slot free-list,
@@ -205,21 +228,30 @@ class SessionPool:
                                    self.devices[0], self._ranges)
         # (collect, slots) of the dispatch whose readback the NEXT step does.
         self._inflight = None
-        self.state = self._fresh_batched_state()
         self._ctrl_lock = threading.Lock()
         self._step_lock = threading.Lock()
         self._pending_resets = []
         self._free = list(range(self.n_slots))
         self.last_step_ms = 0.0
-        # Warm up off the serving path and DISCARD the run: a kept warm step
-        # would advance every slot's phase and glide state by one silent
-        # block before any session arrives.
-        st = self.state
-        x = self._put_blocks(np.zeros((self.n_slots, CHANNELS_IN, self.blocksize), np.float32))
-        for _ in range(2):
-            st, ys = self._step(st, self._put_targets(self._tbuf), x)
-        for y in ys:
-            y.cpu()
+        # One runner per shard, warmed up and captured off the serving path.
+        # The warm-up is discarded (the runner restores its buffers): a
+        # kept warm step would advance every slot's phase and glide state
+        # by one silent block before any session arrives.
+        self._runners, self._stages = [], []
+        label = f"{self.chain.label()} pool of {self.n_slots} slots"
+        for chain, state, dev, (lo, hi) in zip(self._chains, self._fresh_batched_state(),
+                                               self.devices, self._ranges):
+            with device_scope(dev):
+                runner = PackedRunner(
+                    _pool_step(chain, self._trows), state,
+                    torch.from_numpy(self._tbuf[:, lo:hi].copy()).to(dev),
+                    x_shape=(hi - lo, CHANNELS_IN, self.blocksize), device=dev,
+                    packer=HybridPacker, label=f"{label} on {dev}")
+                runner.prepare()
+            self._runners.append(runner)
+            self._stages.append((Staging(self._tbuf[:, lo:hi].shape, dev),
+                                 Staging((hi - lo, CHANNELS_IN, self.blocksize), dev)))
+        self.state = [r.sgroups for r in self._runners]
 
     def _fresh_batched_state(self):
         """Fresh per-slot audio state for every slot, one tree per shard;
@@ -229,31 +261,27 @@ class SessionPool:
             return [batched]
         return self.chain.split_slots(batched, self.devices)
 
-    def _put_blocks(self, x):
-        """Ship a (S, ci, N) host input: each shard's slot range to its
-        device."""
-        return [torch.from_numpy(x[lo:hi]).to(d) for (lo, hi), d in zip(self._ranges,
-                                                                         self.devices)]
+    def _reset_state(self):
+        """Every slot's state fresh, written into the runners' buffers."""
+        for runner, dev, state in zip(self._runners, self.devices,
+                                      self._fresh_batched_state()):
+            with device_scope(dev):
+                runner.write_state(runner.pack_state(state))
 
-    def _put_targets(self, tbuf):
-        """Ship a (P, S) host target buffer for one dispatch: each shard's
-        column range to its device."""
-        return [torch.from_numpy(np.ascontiguousarray(tbuf[:, lo:hi])).to(d)
-                for (lo, hi), d in zip(self._ranges, self.devices)]
-
-    def _step(self, states, tflats, xs):
-        """The batched chain step of every shard, launched in turn: the
-        target rows are (S/n,) views of each shard's shipped buffer.
-        Returns (states, outputs), one per shard."""
-        new, ys = [], []
-        for chain, state, tflat, x in zip(self._chains, states, tflats, xs):
-            targets = tuple(
-                {name: tflat[self._trows[(i, name)]] for name in model.PARAMS}
-                for i, (eid, model) in enumerate(chain.effects))
-            state, y = chain.process_block(state, targets, x)
-            new.append(state)
-            ys.append(y)
-        return new, ys
+    def _step(self, tbuf, x):
+        """Every shard's step, launched in turn with its card current: the
+        shard's columns of the (P, S) host targets and its rows of the
+        (S, ci, N) host blocks go through pinned staging into the runner's
+        static buffers (non-blocking), then its graph replays.  Returns the
+        outputs (the runners' static ``y`` on the card), one per shard."""
+        ys = []
+        for runner, (t_stage, x_stage), dev, (lo, hi) in zip(
+                self._runners, self._stages, self.devices, self._ranges):
+            with device_scope(dev):
+                t_stage.put(tbuf[:, lo:hi], runner.tgroups[0].view(-1, hi - lo))
+                x_stage.put(x[lo:hi], runner.x)
+                ys.append(runner.run()[1])
+        return ys
 
     # -- slots (control plane: host-only, never waits on a dispatch) ------
     def claim(self):
@@ -341,17 +369,19 @@ class SessionPool:
         return None
 
     def _apply_pending_resets(self, resets):
-        """Graft single-slot state into the batched state for every queued
-        (slot, single) entry — ``single`` is None for a plain release (fresh
-        default state) or a session-configured seed from
-        claim_configured/rebuild_slot.  Rare; runs under the step lock."""
-        states = list(self.state)
+        """Graft single-slot state into the runners' static state buffers,
+        in place, for every queued (slot, single) entry — ``single`` is None
+        for a plain release (fresh default state) or a session-configured
+        seed from claim_configured/rebuild_slot.  Rare; runs under the step
+        lock, stream-ordered after the steps already enqueued."""
         span = self.n_slots // len(self.devices)
         for slot, single in resets:
             i, local = divmod(slot, span)
-            states[i] = self._chains[i].graft_slot_state(
-                states[i], single if single is not None else self._fresh_single, local)
-        self.state = states
+            runner = self._runners[i]
+            with device_scope(self.devices[i]):
+                self._chains[i].graft_slot_state_(
+                    runner.state_packer.unpack(runner.sgroups),
+                    single if single is not None else self._fresh_single, local)
 
     # -- batched step ------------------------------------------------------
     def step_blocks(self, blocks: dict[int, np.ndarray]):
@@ -383,10 +413,7 @@ class SessionPool:
             if resets:
                 self._apply_pending_resets(resets)
             t0 = time.perf_counter()
-            # A raise here leaves self.state at the pre-step state: the step
-            # is functional and the assignment never runs.
-            self.state, ys = self._step(self.state, self._put_targets(tbuf),
-                                        self._put_blocks(x))
+            ys = self._step(tbuf, x)
             prev, self._inflight = self._inflight, (self._readback.launch(ys), tuple(blocks))
             # Advance the shared grid phase(s) for the block just enqueued
             # (every slot stepped, idle ones on silence).
@@ -413,7 +440,7 @@ class SessionPool:
         except Exception:
             self._inflight = None
             print("Error: pool readback failed; resetting slot state")
-            self.state = self._fresh_batched_state()
+            self._reset_state()
             raise
 
     def flush_pipeline(self):
@@ -443,6 +470,9 @@ class SessionPool:
         with self._step_lock:
             self._inflight = None
             self.state = None
+            for runner in self._runners:
+                runner.release()
+            self._runners = []
 
 
 def canonical_topology(effects_config, grid: bool = False):

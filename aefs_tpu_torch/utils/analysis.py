@@ -65,8 +65,15 @@ class PlotAnalyzer:
             .astype(np.float32)).to(self.device)
 
     def _analyze(self, frames):
-        """frames: (W, FFT_SIZE) float32 tensor on the device -> (spec_db
-        (W, SPECTRUM_POINTS), chroma (W, 12)) as numpy."""
+        """frames: (W, FFT_SIZE) float32 numpy -> (spec_db (W,
+        SPECTRUM_POINTS), chroma (W, 12)) as numpy, computed on the device
+        with it current."""
+        from aefs_tpu_torch.utils.platform import device_scope
+
+        with device_scope(self.device):
+            return self._analyze_on_device(torch.from_numpy(frames).to(self.device))
+
+    def _analyze_on_device(self, frames):
         mag = torch.abs(torch.fft.rfft(frames * self.window)) / (FFT_SIZE / 4)
         # Log-spaced spectrum in dB (02_custom.js:178-250 renders log-x dB).
         spec_db = 20.0 * torch.log10(torch.clamp(mag[:, self.log_idx], min=1e-7))
@@ -111,7 +118,7 @@ class PlotAnalyzer:
             sig = np.asarray(sig, np.float32).reshape(-1)
             padded = np.concatenate([np.zeros(FFT_SIZE, np.float32), sig])
             frames = padded[ends[:, None] + np.arange(FFT_SIZE)[None, :]]
-            specs, chromas = self._analyze(torch.from_numpy(frames).to(self.device))
+            specs, chromas = self._analyze(np.ascontiguousarray(frames))
             out[name] = {
                 "spectrum_db": specs.round(2).tolist(),
                 "chroma": chromas.round(4).tolist(),
@@ -123,7 +130,7 @@ class PlotAnalyzer:
         result = {"freqs": self.plot_freqs}
         for name, chunk in (("input", in_chunk), ("output", out_chunk)):
             tail = self._push(name, chunk)[-FFT_SIZE:]
-            spec_db, chroma = self._analyze(torch.from_numpy(tail[None].copy()).to(self.device))
+            spec_db, chroma = self._analyze(tail[None].copy())
             result[name] = {
                 "spectrum_db": spec_db[0].round(2).tolist(),
                 "chroma": chroma[0].round(4).tolist(),

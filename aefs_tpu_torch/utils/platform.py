@@ -11,6 +11,7 @@ There is no fallback: asking for the card where there is none raises.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -43,3 +44,14 @@ def same_device(a, b) -> bool:
         return d
 
     return norm(a) == norm(b)
+
+
+def device_scope(device):
+    """A context with ``device`` current when it is a card (a no-op for
+    the host).  Every entry point runs its card work under it: eager ops
+    issued for one card while another, still unused, is current may fault
+    on a machine of several cards."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

@@ -96,11 +96,25 @@ Drives the port's main path (aefs_tpu_torch) end to end on the card:
    is held bit for bit (a difference is printed, and fails beyond -120
    dBFS).
 
+13. the compiled step (``step_graph``): since the streaming step and the
+   pool's step are one captured CUDA graph per chain (phases 8-12 run
+   through them), each of the flagship, "Lush Chorus", "Rain Delay",
+   "Multiband Master", "Concert Hall (Convolution)" and "Clean Noise
+   Removal" streams 40 blocks through the engine (an ``update_param`` at
+   block 20) against the eager step on the card, bit for bit, with K1 and
+   K3 counted once per replay; its capture seconds, kernels per replay
+   against the eager step's, the graph pool's memory, and the host-clock
+   p50/p99 of a synchronized step, graph and eager, in this process; then
+   the flagship pool's step p50/p99 at S = 1, 16, 64 and 256, synchronous
+   and pipelined.
+
 ``python3 chip_smoke.py --only shard`` runs the probe, the build and phase
 12 alone, over every visible card (the default run needs one card).
 
-Every path of phases 6-12 runs from zeroed kernel launch counters, read
-just after it; each fails if a kernel it runs was not launched.  The last
+Every path of phases 6-13 runs from zeroed kernel launch counters, read
+just after it; each fails if a kernel it runs was not launched.  A graph
+replay counts the launches its capture recorded; warm-up and capture are
+set-up and count none (core/packing.py).  The last
 slice's paths run none of the four kernels (their FFTs are cuFFT, as the
 JAX package's are ``jnp.fft`` outside Pallas); their counts are recorded.
 Phases 9 and 11 write their scratch files under ``build/chip_smoke/`` and
@@ -201,7 +215,14 @@ LAST_SLICE_PRESETS = ("Clean Noise Removal", "Crunch", "Concert Hall (Convolutio
 # Every wrapper's launch counter, by the name the kernels' record uses.
 COUNTERS = {"octaver_step": octaver_step, "comb_sums": comb_sums,
             "chorus_step": chorus_step, "comb_chunks": comb_chunks}
-LAUNCHES = {k: 0 for k in COUNTERS}  # summed over the paths of phases 6-12
+LAUNCHES = {k: 0 for k in COUNTERS}  # summed over the paths of phases 6-13
+# The step kernels' device symbols: a graph replay's trace is held to the
+# launches its capture recorded, which every replay credits (check_replay).
+STEP_KERNELS = {"octaver_step": "octaver_step_kernel", "chorus_step": "chorus_step_kernel"}
+GRAPH_CHECKS = {}  # graph path -> {"recorded": {...}, "traced": {...}, "kernels": [n, ...], ...}
+TRACE_REPLAYS = 3  # traced replays of a graph path in one profiler session (check_replay)
+TRACE_SESSIONS = 5  # profiler sessions tried while a trace holds no device record
+TRACE_MARGIN_S = 0.01  # host time between a session's start and its first replay
 POOL_SLOTS = 16  # the pool server's default width
 SLOT_GRID_S = (1, 16, 64)
 SLOT_GRID_BLOCKS = 40
@@ -642,6 +663,7 @@ def streaming(name, cfg, mono, kernel=None, n_blocks=STREAM_BLOCKS):
 
     (lat, outs), counts = count_launches(run, need=(kernel,) if kernel else (),
                                          per_block=n_blocks)
+    check_replay(f"engine {name}", eng._runner)
     got = np.concatenate(outs)
     if got.shape != (n_blocks * BLOCK, 2) or not np.all(np.isfinite(got)):
         raise AssertionError(f"streaming {name}: bad output {got.shape}")
@@ -1213,6 +1235,75 @@ def kernels_per_step(fn, steps=10):
     return n / steps, (len(evs) - n) / steps, busy / steps
 
 
+def check_replay(path, runner):
+    """Hold the launches a runner's capture recorded (which each replay
+    credits to the wrappers' counters) against the device: TRACE_REPLAYS
+    replays of its graph under torch.profiler, counting, for each replay,
+    the step kernels whose CUPTI correlation id is that of its
+    ``cudaGraphLaunch``, so each one counted ran as a node of the graph and
+    not from the kernel library's own stream.
+
+    The profiler loses device records: after the pool's timed steps on the
+    H100, the first replay of a session often came back short of the
+    graph's first few kernels, and now and then a whole session held no
+    device record at all (less often with the pause of host time that now
+    opens each session).  A graph replays the same nodes every time, so a
+    step kernel is a node of it when any traced replay holds it: the check
+    takes the most any replay holds, and no replay may hold more than the
+    capture recorded.  A session with no device record at all is traced
+    again, up to TRACE_SESSIONS times.  The static state is restored after
+    it, so the path's stream goes on unchanged, and the replays credit no
+    counter.  Once per graph path;
+    fails on any difference."""
+    if path in GRAPH_CHECKS:
+        return
+    graph, _, record = runner.captured
+    recorded = {k: record.get(COUNTERS[k], 0) for k in STEP_KERNELS}
+    cuda = torch.autograd.DeviceType.CUDA
+    for session in range(1, TRACE_SESSIONS + 1):
+        with torch.cuda.device(runner.device):
+            keep = [g.clone() for g in runner.sgroups]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(TRACE_MARGIN_S)
+                for _ in range(TRACE_REPLAYS):
+                    graph.replay()
+                    torch.cuda.synchronize()
+            for g, k in zip(runner.sgroups, keep):
+                g.copy_(k)
+            torch.cuda.synchronize()
+        evs = prof.profiler.kineto_results.events()
+        launch = [ev.correlation_id() for ev in evs
+                  if ev.device_type() != cuda and ev.name().startswith("cudaGraphLaunch")]
+        if len(launch) != TRACE_REPLAYS or not all(launch):
+            raise AssertionError(f"graph replay {path}: {len(launch)} cudaGraphLaunch calls "
+                                 f"traced (correlation ids {launch}), {TRACE_REPLAYS} made")
+        runs = [[ev.name() for ev in evs if ev.device_type() == cuda and ev.correlation_id() == c]
+                for c in launch]
+        if any(runs):
+            break
+    else:
+        raise AssertionError(f"graph replay {path}: {TRACE_SESSIONS} traces held no device record")
+    held = [{k: sum(sym in n for n in r) for k, sym in STEP_KERNELS.items()} for r in runs]
+    traced = {k: max(h[k] for h in held) for k in STEP_KERNELS}
+    if traced != recorded:
+        raise AssertionError(f"graph replay {path}: the traced replays hold {held} step kernels "
+                             f"among {[len(r) for r in runs]}, the capture recorded {recorded}")
+    GRAPH_CHECKS[path] = {"recorded": recorded, "traced": traced,
+                          "kernels": [len(r) for r in runs], "sessions": session}
+    phase("graph_replay_trace", path=path, **GRAPH_CHECKS[path])
+
+
+def graph_traced(kernel):
+    """The graph paths whose traced replay held ``kernel``; fails if none
+    did, since the credited launches of the graph paths would then rest on
+    the capture's record alone."""
+    n = sum(c["traced"][kernel] > 0 for c in GRAPH_CHECKS.values())
+    if not n:
+        raise AssertionError(f"{kernel}: no graph replay was traced with it")
+    return n
+
+
 def union_ms(intervals):
     """Length of the union of (start_ns, end_ns) intervals, in ms."""
     total, cur_s, cur_e = 0, None, None
@@ -1242,6 +1333,7 @@ def pool_flagship(mono):
     dedicated = SessionPool(FLAGSHIP, n_slots=POOL_SLOTS, device="cuda")
     outs_d, counts_d = count_launches(lambda: drive_pool(dedicated, streams, POOL_BLOCKS),
                                       need=("octaver_step",), per_block=POOL_BLOCKS)
+    check_replay(f"pool flagship S={POOL_SLOTS}", pool._runners[0])
     for b in range(POOL_BLOCKS):
         for s in range(POOL_SLOTS):
             if not np.array_equal(outs[b][s], outs_d[b][s]):
@@ -1316,6 +1408,9 @@ def timed_steps(cfg, slots, mono, steps, pipelined, need=None, grid=False, shard
     lat, counts = count_launches(run, need=(need,) if need else (), per_block=steps * per_step)
     if pipelined:
         pool.flush_pipeline()
+    for i, runner in enumerate(pool._runners):
+        check_replay(f"pool {pool.chain.label()} S={slots}{' grid' if grid else ''}"
+                     f"{f' shard {i}' if shard else ''}", runner)
     lat.sort()
     p99 = lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))]
     return {"p50_ms": statistics.median(lat), "p99_ms": p99, "max_ms": lat[-1],
@@ -1786,6 +1881,7 @@ def pool_grid(mono, generic):
                            GRID_UPDATE),
         exact={"octaver_step": 0})
     wall = time.perf_counter() - t0
+    check_replay(f"grid pool flagship S={POOL_SLOTS}", pool._runners[0])
     if not np.all(pool._tbuf[row] == (STREAM_BLOCKS * adv) % mod):
         raise AssertionError("grid pool: the shared phase row is not the pool clock")
     worst_solo, worst_cpu = -np.inf, -np.inf
@@ -2025,6 +2121,8 @@ def shard_pool(mono, devs):
     outs, counts = count_launches(
         lambda: drive_pool(pool, streams, SHARD_BLOCKS, change_at=SHARD_CHANGE_AT),
         exact={"octaver_step": SHARD_BLOCKS * len(devs)})
+    for i, runner in enumerate(pool._runners):
+        check_replay(f"shard pool flagship S={SHARD_STREAMS} shard {i}", runner)
     plain = SessionPool(FLAGSHIP, n_slots=SHARD_STREAMS, device="cuda")
     want = drive_pool(plain, streams, SHARD_BLOCKS, change_at=SHARD_CHANGE_AT)
     same, worst = held_equal("sharded pool vs unsharded pool",
@@ -2143,6 +2241,132 @@ def shard(demo, mono, work):
     phase("shard_walls", seconds=walls, total_s=sum(walls.values()))
 
 
+# -- phase 13: the compiled step (one captured CUDA graph per chain) ---------
+
+# Each chain of the captured step, with the update_param made at block 20
+# (tests/test_torch_graph.py holds the same runs).
+GRAPH_CHAINS = (("flagship", ("o", "semitones", -7.0)),
+                ("Lush Chorus", ("lc1", "rate_hz", 2.5)),
+                ("Rain Delay", ("rd1", "feedback", 0.6)),
+                ("Multiband Master", ("mml", "drive_db", 6.0)),
+                ("Concert Hall (Convolution)", ("cv1", "mix_wet", 0.9)),
+                ("Clean Noise Removal", ("p6", "threshold_db", -30.0)))
+GRAPH_BLOCKS, GRAPH_CHANGE_AT = 40, 20
+GRAPH_TIMED = 100  # synchronized steps timed per chain, graph and eager alike
+GRAPH_TIMED_MULTIBAND = 40  # ~70 ms an eager step
+GRAPH_POOL_S = (1, 16, 64, 256)
+# Where a library op picks another algorithm under capture, the op and the
+# bar instead of bitwise equality (none measured so far).
+GRAPH_LIBRARY_OPS = {}
+
+
+def pctl(lat):
+    lat = sorted(lat)
+    return {"p50_ms": statistics.median(lat),
+            "p99_ms": lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))]}
+
+
+def graph_pool_bytes(graph):
+    """Bytes of the card's memory segments in ``graph``'s private pool (None
+    if the allocator's snapshot does not name pools)."""
+    pool = graph.pool()
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def step_graph_chain(name, change, mono):
+    """One chain: 40 blocks through the engine (graph replays, the
+    update_param at block 20 written into the static targets) against the
+    eager step on the card, K1/K3 once per replay; capture seconds, kernels
+    per replay and per eager step, the graph pool's memory, and the
+    host-clock p50/p99 of a synchronized step, graph (engine) and eager
+    (upload, ``process_block``, readback), in this process."""
+    cfg = preset_cfg(name)
+    blocks = [mono[i * BLOCK:(i + 1) * BLOCK] for i in range(GRAPH_BLOCKS)]
+    chain, state, tmap = build_chain(cfg, FS, BLOCK, device="cuda")
+    targets, want = chain.targets(tmap), []
+    for k, b in enumerate(blocks):
+        if k == GRAPH_CHANGE_AT:
+            tmap[change[0]][change[1]] = change[2]
+            targets = chain.targets(tmap)
+        state, y = chain.process_block(state, targets, torch.from_numpy(b.T.copy()).cuda())
+        want.append(y.cpu().numpy().T)
+    eng = AudioEngine(device="cuda")
+    before = torch.cuda.memory_allocated()
+    eng.build_chain(cfg)
+    runner = eng._runner
+    pool_bytes = graph_pool_bytes(runner.graph)
+    alloc = torch.cuda.memory_allocated() - before
+
+    def run():
+        outs = []
+        for k, b in enumerate(blocks):
+            if k == GRAPH_CHANGE_AT:
+                eng.update_param(*change)
+            outs.append(eng.process_stream_block(b))
+        return outs
+
+    types = [c["type"] for c in cfg]
+    exact = {"octaver_step": GRAPH_BLOCKS if "octaver" in types else 0,
+             "chorus_step": GRAPH_BLOCKS if "chorus" in types else 0}
+    got, counts = count_launches(run, exact=exact)
+    check_replay(f"engine {name}", runner)
+    err = err_dbfs(np.concatenate(got), np.concatenate(want))
+    bitwise = bool(np.array_equal(np.concatenate(got), np.concatenate(want)))
+    op, bar = GRAPH_LIBRARY_OPS.get(name, (None, None))
+    if not bitwise and not (op and err <= bar):
+        raise AssertionError(f"step_graph {name}: graph vs eager {err:.1f} dBFS")
+    n = GRAPH_TIMED_MULTIBAND if name == "Multiband Master" else GRAPH_TIMED
+    timed = [mono[(GRAPH_BLOCKS + i) * BLOCK:(GRAPH_BLOCKS + i + 1) * BLOCK] for i in range(n)]
+    lat_graph = []
+    for b in timed:
+        t0 = time.perf_counter()
+        eng.process_stream_block(b)
+        lat_graph.append(1000.0 * (time.perf_counter() - t0))
+    lat_eager = []
+    for b in timed:
+        t0 = time.perf_counter()
+        state, y = chain.process_block(state, targets, torch.from_numpy(b.T.copy()).cuda())
+        y.cpu()
+        lat_eager.append(1000.0 * (time.perf_counter() - t0))
+    k_graph, c_graph, busy_graph = kernels_per_step(lambda: runner.run(), steps=20)
+    xb = torch.from_numpy(timed[0].T.copy()).cuda()
+    k_eager, c_eager, busy_eager = kernels_per_step(
+        lambda: chain.process_block(state, targets, xb), steps=5)
+    graph, eager = pctl(lat_graph), pctl(lat_eager)
+    eng.close()
+    row = {"chain": name, "blocks": GRAPH_BLOCKS, "bitwise_vs_eager": bitwise,
+           "graph_vs_eager_dbfs": err, "library_op": op, "launches": counts,
+           "capture_s": runner.capture_s, "kernels_per_replay": k_graph,
+           "copies_per_replay": c_graph, "kernels_per_eager_step": k_eager,
+           "graph_pool_bytes": pool_bytes, "allocated_bytes_after_build": alloc,
+           "graph_step": graph, "eager_step": eager, "timed_steps": n,
+           "device_busy_ms_per_replay": busy_graph, "device_busy_ms_per_eager_step": busy_eager,
+           "device_busy_share_graph": busy_graph / graph["p50_ms"], "deadline_ms": BUDGET_MS}
+    phase("step_graph", **row)
+    return row
+
+
+def step_graph(mono):
+    """Phase 13: every chain of the compiled step, graph against eager, then
+    the flagship pool's step p50/p99 at S = 1, 16, 64, 256, synchronous and
+    pipelined (one graph replay per step)."""
+    rows = {name: step_graph_chain(name, change, mono) for name, change in GRAPH_CHAINS}
+    pool = {}
+    for slots in GRAPH_POOL_S:
+        for mode in ("sync", "pipelined"):
+            t, p = timed_steps(FLAGSHIP, slots, mono, TIMED_STEPS, mode == "pipelined",
+                               "octaver_step")
+            pool[f"S={slots} {mode}"] = {"p50_ms": t["p50_ms"], "p99_ms": t["p99_ms"],
+                                         "max_ms": t["max_ms"],
+                                         "capture_s": p._runners[0].capture_s}
+            p.close()
+    phase("step_graph_pool", chain="flagship", step_ms=pool, deadline_ms=BUDGET_MS)
+    return rows, pool
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "shard"]):
@@ -2237,15 +2461,20 @@ def main(argv=None):
     phase("shard_wall", seconds=wall)
     shutil.rmtree(WORK, ignore_errors=True)
 
+    # Phase 13: the compiled step.
+    _, wall = timed_phase(lambda: step_graph(mono))
+    phase("step_graph_wall", seconds=wall)
+
     print(json.dumps({"kernels": [
         {"name": "octaver_step", "route": "cuda", "source": "aefs_tpu_torch/csrc/resample.cu",
          "replaces": "aefs_tpu/ops/pallas/resample.py:133", "launches": LAUNCHES["octaver_step"],
-         **k1, "slot_grid": grids["octaver"]},
+         "graph_paths_traced": graph_traced("octaver_step"), **k1, "slot_grid": grids["octaver"]},
         {"name": "comb_sums", "route": "cuda", "source": "aefs_tpu_torch/csrc/comb.cu",
          "replaces": "aefs_tpu/ops/pallas/comb.py:145", "launches": LAUNCHES["comb_sums"], **k2},
         {"name": "chorus_step", "route": "cuda", "source": "aefs_tpu_torch/csrc/resample.cu",
          "replaces": "aefs_tpu/ops/pallas/resample.py:64",
-         "launches": LAUNCHES["chorus_step"], **k3, "slot_grid": grids["chorus"]},
+         "launches": LAUNCHES["chorus_step"], "graph_paths_traced": graph_traced("chorus_step"),
+         **k3, "slot_grid": grids["chorus"]},
         {"name": "comb_chunks", "route": "cuda", "source": "aefs_tpu_torch/csrc/comb.cu",
          "replaces": "aefs_tpu/ops/pallas/comb.py:62", "launches": LAUNCHES["comb_chunks"], **k4},
     ]}), flush=True)

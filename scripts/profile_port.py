@@ -8,14 +8,20 @@ preset ``--preset`` names, of ``aefs_tpu_torch`` two ways, on the card,
 under ``torch.profiler``:
 
 - streaming: ``AudioEngine.process_stream_block`` on 256-sample blocks of
-  the demo's mono mix (``--blocks`` profiled blocks after a warm-up);
+  the demo's mono mix (``--blocks`` profiled blocks after a warm-up): one
+  replay of the chain's captured CUDA graph per block
+  (``core/packing.py``), so its kernels are the graph's and no effect
+  span fires; ``streaming_eager`` beside it steps the same chain eagerly
+  (upload, ``Chain.process_block``, readback: the step before the graph),
+  with the per-effect spans;
 - file mode: ``process_offline`` of the whole demo file (one warm render
   first, then one profiled render);
 - with ``--pool S``: ``SessionPool.step_blocks`` of a pool of S slots
   (aefs_tpu_torch/server/pool.py), every slot streaming its own part of
-  the demo, one synchronous pool step per profiled step; ``--grid`` makes
-  it the grid pool (``SessionPool(grid=True)``: a whole-octave octaver on
-  its exact integer grid instead of the K1 step);
+  the demo, one synchronous pool step (one graph replay) per profiled
+  step, and ``pool_eager``, the same batched step eagerly; ``--grid``
+  makes it the grid pool (``SessionPool(grid=True)``: a whole-octave
+  octaver on its exact integer grid instead of the K1 step);
 - with ``--batch F``: ``render_batch`` of F demo-length files (the demo
   rotated by i/16 of its length), one batched ``Chain.process_whole``;
   besides the profile, the unprofiled call's host clock split into
@@ -28,7 +34,8 @@ is wrapped in a ``record_function`` span named after its kind; the package
 itself carries no instrumentation.  Reported per step (block or render):
 
 - ``kernels``: device kernel events; ``copies``: memcpy/memset events;
-- ``launch_calls``: host ``cudaLaunchKernel*`` calls;
+- ``launch_calls``: host ``cudaLaunchKernel*`` calls; ``graph_launches``:
+  host ``cudaGraphLaunch`` calls (one per replayed step);
 - ``wall_ms_unprofiled``: the host wall time of the same step with the
   profiler off (streaming: median of the warm blocks; file: one render);
 - ``device_busy_ms``: the union of all device intervals (kernels, copies,
@@ -40,7 +47,9 @@ itself carries no instrumentation.  Reported per step (block or render):
   of the summed spans, the kernel launches issued inside the span, and the
   busy device time of the work that starts inside the span's mirror on the
   device timeline;
-- ``top_kernels``: the device kernels with the most device time.
+- ``top_kernels``: the device kernels with the most device time;
+- ``port_kernels``: the hand-written kernels (K1-K4, ``csrc/``), their
+  calls and device time per step, inside a graph replay or not.
 
 Prints one JSON object and writes it to ``--out``.  Imports no JAX.
 """
@@ -72,6 +81,9 @@ from aefs_tpu_torch.engine.wavio import read_wav_file  # noqa: E402
 from aefs_tpu_torch.models import EFFECT_REGISTRY, ParallelChains  # noqa: E402
 
 BLOCK = 256
+# The hand-written kernels of csrc/ (K1, K3; K2 and K4 share comb_bank_kernel).
+PORT_KERNELS = ("octaver_step_kernel", "chorus_step_kernel", "comb_bank_kernel",
+                "comb_side_sums_kernel")
 
 
 @contextmanager
@@ -120,7 +132,7 @@ def summarize(prof, steps, wall_ms_unprofiled):
     events = prof.profiler.kineto_results.events()
     cuda = torch.autograd.DeviceType.CUDA
     dev_iv, kernel_ns, kernel_n = [], defaultdict(int), defaultdict(int)
-    copies = 0
+    copies = graph_launches = 0
     launches, spans, dev_spans = [], defaultdict(list), defaultdict(list)
     for ev in events:
         name, s = ev.name(), ev.start_ns()
@@ -138,6 +150,8 @@ def summarize(prof, steps, wall_ms_unprofiled):
                 kernel_n[name] += 1
         elif name.startswith("cudaLaunchKernel"):
             launches.append(s)
+        elif name.startswith("cudaGraphLaunch"):
+            graph_launches += 1
     launches.sort()
     dev_iv.sort()
     dev_starts = np.array([s for s, _ in dev_iv], dtype=np.int64)
@@ -154,17 +168,21 @@ def summarize(prof, steps, wall_ms_unprofiled):
                       "device_busy_ms": _union_ms(mine) / steps}
     busy_ms = _union_ms(dev_iv) / steps
     top = sorted(kernel_ns, key=kernel_ns.get, reverse=True)[:12]
+    ours = {k: {"calls": kernel_n[k] / steps, "device_ms": kernel_ns[k] / 1e6 / steps}
+            for k in kernel_ns if any(n in k for n in PORT_KERNELS)}
     return {
         "steps": steps,
         "kernels": sum(kernel_n.values()) / steps,
         "copies": copies / steps,
         "launch_calls": len(launches) / steps,
+        "graph_launches": graph_launches / steps,
         "wall_ms_unprofiled": wall_ms_unprofiled,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms_unprofiled,
         "effects": dict(sorted(effects.items(), key=lambda kv: -kv[1]["host_ms"])),
         "top_kernels": [{"name": k[:120], "calls": kernel_n[k] / steps,
                          "device_ms": kernel_ns[k] / 1e6 / steps} for k in top],
+        "port_kernels": ours,
     }
 
 
@@ -186,6 +204,71 @@ def streaming(cfg, mono, n_blocks):
     with effect_spans(), _profiler() as prof:
         for blk in blocks[2 * n_blocks:]:
             eng.process_stream_block(blk)
+        torch.cuda.synchronize()
+    return summarize(prof, n_blocks, wall)
+
+
+def streaming_eager(cfg, mono, n_blocks):
+    """The streaming step without the graph: each block uploaded, stepped
+    through ``Chain.process_block`` and read back, as the engine did before
+    its step was captured."""
+    from aefs_tpu_torch.core.chain import build_chain
+
+    chain, state, tmap = build_chain(cfg, 48000, BLOCK, device="cuda")
+    targets = chain.targets(tmap)
+    blocks = [mono[i * BLOCK:(i + 1) * BLOCK] for i in range(3 * n_blocks)]
+
+    def step(st, blk):
+        st, y = chain.process_block(st, targets, torch.from_numpy(blk.T.copy()).cuda())
+        y.cpu()
+        return st
+
+    lat = []
+    for blk in blocks[:2 * n_blocks]:
+        t0 = time.perf_counter()
+        state = step(state, blk)
+        lat.append(1000.0 * (time.perf_counter() - t0))
+    wall = statistics.median(lat[n_blocks:])
+    torch.cuda.synchronize()
+    with effect_spans(), _profiler() as prof:
+        for blk in blocks[2 * n_blocks:]:
+            state = step(state, blk)
+        torch.cuda.synchronize()
+    return summarize(prof, n_blocks, wall)
+
+
+def pool_eager(cfg, mono, n_blocks, slots, grid):
+    """The pool's batched step without the graph: ``Chain.process_block``
+    over the pool's fresh batched state and its target buffer, every slot
+    streaming, uploaded and read back per step."""
+    from aefs_tpu_torch.server.pool import SessionPool
+
+    pool = SessionPool(cfg, n_slots=slots, device="cuda", grid=grid)
+    chain = pool.chain
+    state = chain.batch_state(pool._fresh_single, slots)
+    tflat = torch.from_numpy(pool._tbuf.copy()).cuda()
+    targets = tuple({name: tflat[pool._trows[(i, name)]] for name in model.PARAMS}
+                    for i, (eid, model) in enumerate(chain.effects))
+    pool.close()
+    x = mono[:, 0]
+    steps = [np.stack([x[(b * slots + s) * BLOCK % (x.shape[0] - BLOCK):][:BLOCK][None]
+                       for s in range(slots)]) for b in range(3 * n_blocks)]
+
+    def step(st, xb):
+        st, y = chain.process_block(st, targets, torch.from_numpy(xb).cuda())
+        y.cpu()
+        return st
+
+    lat = []
+    for xb in steps[:2 * n_blocks]:
+        t0 = time.perf_counter()
+        state = step(state, xb)
+        lat.append(1000.0 * (time.perf_counter() - t0))
+    wall = statistics.median(lat[n_blocks:])
+    torch.cuda.synchronize()
+    with effect_spans(), _profiler() as prof:
+        for xb in steps[2 * n_blocks:]:
+            state = step(state, xb)
         torch.cuda.synchronize()
     return summarize(prof, n_blocks, wall)
 
@@ -279,11 +362,14 @@ def main(argv=None):
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "chain": args.preset or "flagship",
         "streaming": streaming(cfg, mono, args.blocks),
+        "streaming_eager": streaming_eager(cfg, mono, args.blocks),
         "file_mode": file_mode(cfg, demo, fs),
     }
     if args.pool:
         result["pool"] = {"slots": args.pool, "grid": args.grid,
                           **pool_steps(cfg, mono, args.blocks, args.pool, args.grid)}
+        result["pool_eager"] = {"slots": args.pool, "grid": args.grid,
+                                **pool_eager(cfg, mono, args.blocks, args.pool, args.grid)}
     if args.batch:
         result["batch"] = batch_render(cfg, demo, fs, args.batch)
     out = pathlib.Path(args.out)
