@@ -16,6 +16,18 @@ captures it, ``file_fn`` and ``process_array(fast=False)`` replay it block
 by block, and ``release`` drops it (the chain -> runner -> bound method ->
 chain cycle that ``gc.disable()`` would never collect).
 
+The JAX package's whole-file entry points, ``fast_file_fn`` and
+``packed_fast_file_fn`` (a jit of ``process_whole``), and the jitted pass of
+its ``render_batch`` stay eager here: ``process_whole`` and
+``process_array(fast=True)`` launch their kernels one by one.  Every
+caller builds a fresh chain for one render and drops it after that pass
+(``process_offline``, ``render_batch``, the backend's ``reprocess_file``
+through ``process_file_array``), and a CUDA graph replayed once costs a
+warm-up pass and a capture on top of the eager pass it records.  A
+whole-file graph pays only with a chain kept across calls and a graph per
+file length, which the JAX package does not have either: that is speed
+work, not a part of the port.
+
 The serving pool steps many streams at once through the same
 ``process_block`` with a leading slot axis written out (JAX vmaps it):
 x (S, ci, N), every state leaf (S, ...) but the lockstep counters, and

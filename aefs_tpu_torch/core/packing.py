@@ -9,7 +9,9 @@ CUDA graph: ``PackedRunner`` owns static device buffers for the packed
 state, the packed targets, the input block ``x`` and the output ``y``,
 captures ``unpack -> fn -> repack into the same state buffers`` once as
 one ``torch.cuda.CUDAGraph`` and replays it for every block, so a step of
-hundreds of eager launches becomes one graph launch.
+hundreds of eager launches becomes one graph launch.  A step whose static
+buffers span cards (a mesh row's model axis, ``parallel/mesh.py``) is one
+graph across them.
 
 The groups are JAX's: leaves in ``jax.tree.flatten`` order
 (``core/convert.py:flatten_like_jax``), one flat buffer per dtype in the
@@ -25,6 +27,7 @@ buffers through pinned memory.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
@@ -128,8 +131,10 @@ class Packer:
 class HybridPacker:
     """Size-thresholded packing: leaves BIGGER than ``big_bytes`` stay
     buffers of their own (repacking them would copy megabytes per step);
-    smaller leaves pack into one 1-D tensor per dtype.  Group order: the
-    big leaves, then one group per small dtype."""
+    smaller leaves pack into one 1-D tensor per dtype and device (a mesh
+    row's model-axis parts live on their own cards; on one device this is
+    JAX's one group per dtype).  Group order: the big leaves, then the
+    small groups in the order their (dtype, device) first appears."""
 
     def __init__(self, example, big_bytes=131072):
         leaves = flatten_like_jax(example)
@@ -137,7 +142,7 @@ class HybridPacker:
         # ("big", index, shape, dtype) or ("small", group, shape, dtype, offset, size)
         self.routes = []
         self.n_big = 0
-        self.small_dtypes = []
+        self.small_keys = []  # (dtype, device) of each small group
         offsets = {}
         for leaf in leaves:
             dt, shape = leaf.dtype, tuple(leaf.shape)
@@ -146,13 +151,14 @@ class HybridPacker:
                 self.routes.append(("big", self.n_big, shape, dt))
                 self.n_big += 1
             else:
-                if dt not in offsets:
-                    offsets[dt] = 0
-                    self.small_dtypes.append(dt)
-                gi = self.small_dtypes.index(dt)
-                self.routes.append(("small", gi, shape, dt, offsets[dt], size))
-                offsets[dt] += size
-        self.group_sizes = tuple(offsets[dt] for dt in self.small_dtypes)
+                key = (dt, leaf.device)
+                if key not in offsets:
+                    offsets[key] = 0
+                    self.small_keys.append(key)
+                gi = self.small_keys.index(key)
+                self.routes.append(("small", gi, shape, dt, offsets[key], size))
+                offsets[key] += size
+        self.group_sizes = tuple(offsets[key] for key in self.small_keys)
 
     @property
     def n_leaves(self):
@@ -160,13 +166,13 @@ class HybridPacker:
 
     @property
     def n_groups(self):
-        return self.n_big + len(self.small_dtypes)
+        return self.n_big + len(self.small_keys)
 
     def pack(self, tree):
         """tree -> tuple: the big leaves themselves, then one new 1-D
-        tensor per small dtype."""
+        tensor per small (dtype, device)."""
         bigs = [None] * self.n_big
-        smalls = [[] for _ in self.small_dtypes]
+        smalls = [[] for _ in self.small_keys]
         for leaf, route in zip(_leaves(self, tree), self.routes):
             if tuple(leaf.shape) != route[2]:
                 raise ValueError(f"a leaf of shape {tuple(leaf.shape)} where the packer "
@@ -175,7 +181,7 @@ class HybridPacker:
                 bigs[route[1]] = leaf.to(route[3])
             else:
                 smalls[route[1]].append(leaf.to(route[3]).reshape(-1))
-        return tuple(bigs) + tuple(_cat(p, dt) for p, dt in zip(smalls, self.small_dtypes))
+        return tuple(bigs) + tuple(_cat(p, dt) for p, (dt, _) in zip(smalls, self.small_keys))
 
     def unpack(self, groups):
         """groups -> tree: the big groups themselves, views of the rest."""
@@ -199,6 +205,41 @@ def capture_stream(device):
     if key not in _capture_streams:
         _capture_streams[key] = torch.cuda.Stream(device=device)
     return _capture_streams[key]
+
+
+def _side_pool(device):
+    """A private memory pool on the side card ``device`` for a graph to
+    keep (``graph.side_pools``).  A ``MemPool`` registers with the current
+    card's allocator and holds its pool there until it is dropped; one made
+    under another card would leave the side card's pool to
+    ``use_mem_pool``'s own reference alone, which its exit drops, and the
+    next ``empty_cache`` (every capture calls one) would free memory the
+    graph's nodes still use."""
+    with torch.cuda.device(device):
+        return torch.cuda.MemPool()
+
+
+@contextlib.contextmanager
+def _with_sides(device, stream, sides, pools=None):
+    """Run a step issued on ``stream`` (``device``'s) with each side card's
+    work on that card's capture stream: forked from ``stream`` on entry and
+    joined back into it on exit.  Inside a capture the fork makes the side
+    streams join the capture, so the side cards' kernels and the copies
+    between cards become nodes of the one graph, ordered by the events the
+    cross-card copies record; ``pools`` (one ``torch.cuda.MemPool`` per
+    side) then hold the side cards' intermediates, which the graph keeps
+    using after the capture, away from every other allocation.  ``device``
+    stays current."""
+    with contextlib.ExitStack() as stack:
+        for k, side in enumerate(sides):
+            side.wait_stream(stream)
+            stack.enter_context(torch.cuda.stream(side))
+            if pools is not None:
+                stack.enter_context(torch.cuda.use_mem_pool(pools[k], device=side.device))
+        stack.enter_context(torch.cuda.device(device))
+        yield
+        for side in sides:
+            stream.wait_stream(side)
 
 
 class PackedRunner:
@@ -228,6 +269,10 @@ class PackedRunner:
                                    (leaves[0].device if leaves else "cpu"))
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        # The other cards whose static buffers the step reads (a mesh row's
+        # model devices): their work joins the capture (``_with_sides``).
+        self.sides = sorted({leaf.device for leaf in leaves if leaf.device.type == "cuda"}
+                            - {self.device}, key=lambda d: d.index)
         self.fn = fn
         self.label = label
         self.sgroups = tuple(g.clone() for g in self.state_packer.pack(ex_state))
@@ -281,10 +326,11 @@ class PackedRunner:
 
     # -- the step ---------------------------------------------------------
     def _step(self):
-        """unpack -> fn -> repack into the static state groups; returns y.
-        Every new group is built (one ``torch.cat`` each, or a copy of a
-        big leaf that aliases a static buffer) before any static group is
-        written: a leaf ``fn`` returns may be a view of an input leaf."""
+        """unpack -> fn -> repack into the static state groups; returns y
+        (a tensor, or a tuple of them).  Every new group is built (one
+        ``torch.cat`` each, or a copy of a big leaf that aliases a static
+        buffer) before any static group is written: a leaf ``fn`` returns
+        may be a view of an input leaf."""
         state = self.state_packer.unpack(self.sgroups)
         targets = self.target_packer.unpack(self.tgroups)
         new_state, y = self.fn(state, targets, self.x)
@@ -300,7 +346,7 @@ class PackedRunner:
             if src is not None:
                 dst.copy_(src)
         # y must not be a view of a buffer the next step overwrites.
-        return y.clone() if _storage(y) in statics else y
+        return tree_map(lambda t: t.clone() if _storage(t) in statics else t, y)
 
     @property
     def graph(self):
@@ -311,8 +357,10 @@ class PackedRunner:
         steps on silence, then one capture.  The static buffers are restored after
         both, so the state is as it was.  Warm-up launches are set-up and
         not counted; the capture's launches are recorded and each replay
-        counts them.  Raises, naming ``label``, if either fails.  A no-op
-        on the CPU and once captured."""
+        counts them.  A step that also runs on side cards (``sides``) is
+        captured as one graph across them (``_with_sides``).  Raises,
+        naming ``label``, if either fails.  A no-op on the CPU and once
+        captured."""
         if self.device.type != "cuda" or self.captured is not None:
             return
         from aefs_tpu_torch.ops import kernels
@@ -323,17 +371,24 @@ class PackedRunner:
                 x_keep = self.x.clone()
                 self.x.zero_()
                 stream = capture_stream(self.device)
-                current = torch.cuda.current_stream()
-                stream.wait_stream(current)
-                with kernels.recording(), torch.cuda.stream(stream):
+                sides = [capture_stream(d) for d in self.sides]
+                currents = [torch.cuda.current_stream(self.device)] + [
+                    torch.cuda.current_stream(d) for d in self.sides]
+                for s, cur in zip([stream] + sides, currents):
+                    s.wait_stream(cur)
+                with kernels.recording(), torch.cuda.stream(stream), \
+                        _with_sides(self.device, stream, sides):
                     for _ in range(WARM_STEPS):
                         self._step()
-                current.wait_stream(stream)
+                for s, cur in zip([stream] + sides, currents):
+                    cur.wait_stream(s)
                 graph = torch.cuda.CUDAGraph()
+                graph.side_pools = [_side_pool(d) for d in self.sides]
                 t0 = time.perf_counter()
                 with kernels.recording() as record:
                     with torch.cuda.graph(graph, stream=stream,
-                                          capture_error_mode="thread_local"):
+                                          capture_error_mode="thread_local"), \
+                            _with_sides(self.device, stream, sides, graph.side_pools):
                         y = self._step()
                 self.capture_s = time.perf_counter() - t0
                 for g, k in zip(self.sgroups, keep):
@@ -347,13 +402,23 @@ class PackedRunner:
     def run(self):
         """One step on the static buffers -> (static state groups, y).  On
         the card: one replay of the captured graph (captured first if need
-        be), on the current stream; ``y`` is the static output."""
+        be), on the current stream, ordered after and before the side
+        cards' current streams; ``y`` is the static output."""
         if self.device.type != "cuda":
             return self.sgroups, self._step()
         if self.captured is None:
             self.prepare()
         graph, y, record = self.captured
-        graph.replay()
+        if self.sides:
+            current = torch.cuda.current_stream(self.device)
+            side_currents = [torch.cuda.current_stream(d) for d in self.sides]
+            for s in side_currents:
+                current.wait_stream(s)
+            graph.replay()
+            for s in side_currents:
+                s.wait_stream(current)
+        else:
+            graph.replay()
         from aefs_tpu_torch.ops.kernels import credit
 
         credit(record)
@@ -370,7 +435,7 @@ class Staging:
     buffers used in turn, each guarded by the event of its last copy, so
     the host never rewrites one a pending copy still reads, and the copy
     to the device is non-blocking (no wait on the stream).  On the CPU a
-    plain copy."""
+    plain copy into the (contiguous) destination."""
 
     def __init__(self, shape, device, dtype=torch.float32):
         self.cuda = torch.device(device).type == "cuda"
@@ -381,8 +446,8 @@ class Staging:
 
     def put(self, host, dst):
         """Copy the numpy array ``host`` (``dst``'s shape) into ``dst``."""
-        if not self.cuda:
-            dst.copy_(torch.from_numpy(np.ascontiguousarray(host)))
+        if not self.cuda:  # straight into the host tensor's memory
+            dst.numpy()[...] = host
             return
         k = self.next
         self.next ^= 1

@@ -162,7 +162,10 @@ class Reverb(EffectModel):
             combs = range(j * r, (j + 1) * r)
             lags = tuple(self.comb_lags[side][c] for side in range(2) for c in combs)
             with device_scope(dev):  # the part's work with its card current
-                g = g_all[..., [side * b + c for side in range(2) for c in combs]].to(dev)
+                # The part's gains, side by side: slices, as a step inside
+                # a captured graph cannot upload an index list.
+                g = torch.cat([g_all[..., j * r:(j + 1) * r],
+                               g_all[..., b + j * r:b + (j + 1) * r]], -1).to(dev)
                 xb = torch.repeat_interleave(pre_out.to(dev), r, -2)
                 y, h2, l2 = self._comb_step(hist.reshape(*lead_shape, 2 * r, -1),
                                             lp.reshape(*lead_shape, 2 * r), xb, lags, g,

@@ -78,15 +78,22 @@ Drives the port's main path (aefs_tpu_torch) end to end on the card:
    slots over 375 blocks, each slot against its grid solo chain fed the
    pool's ``grid_phase`` and 3 slots against the CPU grid pool, K1 never
    launched, step times beside the generic pool's; ``make_mesh`` (one data
-   shard per card) and ``ShardedStreams`` of 16 flagship streams, bit-equal
-   to the pool.
+   shard per card) and ``ShardedStreams`` of 16 flagship streams (one
+   graph replay per data shard a step), bit-equal to its eager step and to
+   the pool.
 12. sharding (``shard``) over every visible card or, with one card, four
    shards on it (``parallel/mesh.py:visible_devices`` replaced; the phase
    prints the cards and the shards' devices): ``ShardedStreams`` of the
-   flagship over 16 streams on a (4, 1) mesh, 40 blocks, against the
-   one-device runner and the pool, K1 once per shard per step; a (2, 2)
-   mesh over the reverb chain and the convolution reverb (the model axis)
-   within -120 / -100 dBFS of one device; ``SessionPool(shard=True)`` at 16
+   flagship over 16 streams on a (4, 1) mesh, 40 blocks (a semitone change
+   at block 20), its graph step (one replay per shard) bit for bit against
+   its eager step, the one-device runner and the pool, K1 once per shard
+   per step; the same for "Lush Chorus", K3 once per shard per step; a
+   (2, 2) mesh over the reverb chain and the convolution reverb (the model
+   axis; over four cards each row one capture across two), graph against
+   eager bit for bit and within -120 / -100 dBFS of one device; every
+   shard's replay traced (``check_replay``); the synchronized step's
+   p50/p99, graph and eager, over 1, 2 and 4 shards for the flagship and
+   "Lush Chorus"; ``SessionPool(shard=True)`` at 16
    slots over 40 blocks (an ``update_param``, a release, a claim) against
    the unsharded pool, then step p50/p99, synchronous and pipelined, at
    S = 16 and 64 over 1, 2 and 4 shards; ``render_batch(shard=True)`` at
@@ -1260,18 +1267,23 @@ def check_replay(path, runner):
     graph, _, record = runner.captured
     recorded = {k: record.get(COUNTERS[k], 0) for k in STEP_KERNELS}
     cuda = torch.autograd.DeviceType.CUDA
+
+    def sync():  # the runner's card and the side cards its graph spans
+        for d in [runner.device] + runner.sides:
+            torch.cuda.synchronize(d)
+
     for session in range(1, TRACE_SESSIONS + 1):
         with torch.cuda.device(runner.device):
             keep = [g.clone() for g in runner.sgroups]
-            torch.cuda.synchronize()
+            sync()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 time.sleep(TRACE_MARGIN_S)
                 for _ in range(TRACE_REPLAYS):
                     graph.replay()
-                    torch.cuda.synchronize()
+                    sync()
             for g, k in zip(runner.sgroups, keep):
                 g.copy_(k)
-            torch.cuda.synchronize()
+            sync()
         evs = prof.profiler.kineto_results.events()
         launch = [ev.correlation_id() for ev in evs
                   if ev.device_type() != cuda and ev.name().startswith("cudaGraphLaunch")]
@@ -1924,11 +1936,61 @@ def pool_grid(mono, generic):
           deadline_ms=BUDGET_MS)
 
 
+def drive_streams(runner, maps, xs, per_stream=True, eager=False, change=None, exact=None):
+    """``ShardedStreams`` ``runner`` over the (S, 1, N) blocks ``xs`` from a
+    fresh state (after one discarded warm step: the step is functional, the
+    held state stays fresh), the graph step or with ``eager`` the eager
+    one, from zeroed launch counters (``exact``: {kernel: launches}).
+    ``maps``: each stream's targets map (``per_stream``) or maps[0] for all;
+    ``change`` = (block, fn) edits the maps before that block.  Checks the
+    peak meter against max |y| every block.  Returns (outputs, wall
+    seconds, counts, final state)."""
+    def targets():
+        return runner.batch_targets(maps) if per_stream else runner.chain.targets(maps[0])
+
+    state, _ = runner.init_state()
+    tg = targets()
+    runner.run_block(state, tg, xs[0], per_stream_targets=per_stream, eager=eager)[1].cpu()
+
+    def run():
+        nonlocal state, tg
+        outs, t0 = [], time.perf_counter()
+        for k, x in enumerate(xs):
+            if change and k == change[0]:
+                change[1](maps)
+                tg = targets()
+            state, y, peak = runner.run_block(state, tg, x, per_stream_targets=per_stream,
+                                              eager=eager)
+            y = y.cpu().numpy()
+            if float(peak) != float(np.max(np.abs(y))):
+                raise AssertionError(f"ShardedStreams {runner.chain.label()}: peak is not max |y|")
+            outs.append(y)
+        return outs, time.perf_counter() - t0
+
+    (outs, wall), counts = count_launches(run, exact=exact)
+    return outs, wall, counts, state
+
+
+def check_shard_replays(path, runner):
+    """``check_replay`` for each data shard's graph of a ``ShardedStreams``."""
+    for i, r in enumerate(runner._runners):
+        check_replay(f"{path} shard {i}", r)
+
+
+def graph_equals_eager(what, got, want):
+    """A graph step's outputs against the eager step's, bit for bit."""
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        worst = max(err_dbfs(a, b) for a, b in zip(got, want))
+        raise AssertionError(f"{what}: the graph step is {worst:.1f} dBFS from the eager step")
+    return True
+
+
 def mesh(mono):
     """``make_mesh`` on the card and ``ShardedStreams`` of the flagship over
-    16 streams with per-stream targets, 40 blocks: bit-equal to a
+    16 streams with per-stream targets, 40 blocks, one graph replay per
+    data shard a step: bit-equal to the eager step and to a
     ``SessionPool`` given the same params, the peak meter max |y|, K1 once
-    per step."""
+    per shard per step."""
     m = make_mesh()
     if m.shape != {"data": torch.cuda.device_count(), "model": 1}:
         raise AssertionError(f"make_mesh() over {torch.cuda.device_count()} card(s): {m.shape}")
@@ -1939,42 +2001,39 @@ def mesh(mono):
     else:
         raise AssertionError("make_mesh(2) did not raise on one card")
     chain, _, tmap = build_chain(FLAGSHIP, FS, BLOCK, device="cuda")
-    runner = ShardedStreams(chain, m, POOL_SLOTS)
     pool = SessionPool(FLAGSHIP, n_slots=POOL_SLOTS, device="cuda")
-    maps = []
     for s in range(POOL_SLOTS):
-        mp = {k: dict(v) for k, v in tmap.items()}
         pool.claim()
         for eid, name, value in FLAGSHIP_SLOT_PARAMS:
-            mp[eid][name] = value(s)
             pool.update_param(s, eid, name, value(s))
-        maps.append(mp)
     streams = pool_streams(mono, POOL_SLOTS, MESH_BLOCKS)
-    state, _ = runner.init_state()
-    targets = runner.batch_targets(maps)
-
-    def run():
-        nonlocal state
-        outs, t0 = [], time.perf_counter()
-        for b in range(MESH_BLOCKS):
-            x = np.stack([streams[s][b] for s in range(POOL_SLOTS)])[:, None, :]
-            state, y, peak = runner.run_block(state, targets, x, per_stream_targets=True)
-            outs.append((y.cpu().numpy(), float(peak)))
-        return outs, time.perf_counter() - t0
-
-    (outs, wall), counts = count_launches(run, need=("octaver_step",), per_block=MESH_BLOCKS)
-    for b, (y, peak) in enumerate(outs):
+    xs = [np.stack([streams[s][b] for s in range(POOL_SLOTS)])[:, None, :]
+          for b in range(MESH_BLOCKS)]
+    runs = {}
+    for mode in ("graph", "eager"):
+        runner = ShardedStreams(chain, m, POOL_SLOTS)
+        runs[mode] = drive_streams(runner, flagship_maps(tmap, POOL_SLOTS), xs,
+                                   eager=mode == "eager",
+                                   exact={"octaver_step": MESH_BLOCKS * m.shape["data"]})
+        if mode == "graph":
+            check_shard_replays("mesh flagship", runner)
+    outs, wall, counts, _ = runs["graph"]
+    graph_equals_eager("mesh flagship", outs, runs["eager"][0])
+    for b, y in enumerate(outs):
         want = pool.step_blocks({s: streams[s][b] for s in range(POOL_SLOTS)})
         if not all(np.array_equal(y[s].T, want[s]) for s in range(POOL_SLOTS)):
             raise AssertionError(f"ShardedStreams block {b}: differs from the pool")
-        if peak != float(np.max(np.abs(y))):
-            raise AssertionError(f"ShardedStreams block {b}: peak {peak} is not max |y|")
     phase("mesh", shape=m.shape, make_mesh_2=too_few, streams=POOL_SLOTS, blocks=MESH_BLOCKS,
-          bitwise_vs_pool=True, launches=counts, step_ms_mean=1000.0 * wall / MESH_BLOCKS)
+          bitwise_vs_eager=True, bitwise_vs_pool=True, launches=counts,
+          step_ms_mean=1000.0 * wall / MESH_BLOCKS,
+          eager_step_ms_mean=1000.0 * runs["eager"][1] / MESH_BLOCKS)
 
 # -- phase 12: sharding over several cards ------------------------------------
 
 SHARD_STREAMS, SHARD_BLOCKS, SHARD_CHANGE_AT = 16, 40, 20
+# Synchronized ShardedStreams steps timed per (chain, shards), graph and
+# eager (an eager flagship step over four shards of one card takes ~40 ms).
+SHARD_TIMED, SHARD_TIMED_EAGER = 100, 30
 SHARD_FILES = (3, 4, 16)
 SHARD_TIMING_S = (16, 64)
 MODEL_CHAINS = {
@@ -2027,36 +2086,31 @@ def flagship_maps(tmap, slots):
 
 def shard_streams_data(mono, devs):
     """``ShardedStreams`` of the flagship over 16 streams with per-stream
-    targets on a (shards, 1) mesh, 40 blocks, against the one-device runner
-    and a 16-slot ``SessionPool``: K1 once per shard per step, the peak
-    meter max |y|.  Returns the final sharded state and its runner."""
+    targets on a (shards, 1) mesh, 40 blocks, stream 5's semitones changed
+    at block 20: the graph step (one replay per shard) bit for bit against
+    the eager step, the one-device runner and a 16-slot ``SessionPool``;
+    K1 once per shard per step, each shard's replay traced.  Returns the
+    final sharded state and its runner."""
     chain, _, tmap = build_chain(FLAGSHIP, FS, BLOCK, device=devs[0])
-    maps = flagship_maps(tmap, SHARD_STREAMS)
     streams = pool_streams(mono, SHARD_STREAMS, SHARD_BLOCKS)
     xs = [np.stack([streams[s][b] for s in range(SHARD_STREAMS)])[:, None, :]
           for b in range(SHARD_BLOCKS)]
+
+    def change(maps):
+        maps[5]["o"]["semitones"] = -7.0
+
     runs = {}
-    for name, mesh_devs in (("sharded", devs), ("one", devs[:1])):
+    for name, mesh_devs, eager in (("sharded", devs, False), ("eager", devs, True),
+                                   ("one", devs[:1], False)):
         runner = ShardedStreams(chain, make_mesh(devices=mesh_devs), SHARD_STREAMS)
-        state, _ = runner.init_state()
-        targets = runner.batch_targets(maps)
-        # A discarded warm step (the step is functional: state stays fresh).
-        runner.run_block(state, targets, xs[0], per_stream_targets=True)[1].cpu()
-
-        def run():
-            nonlocal state
-            outs, t0 = [], time.perf_counter()
-            for x in xs:
-                state, y, peak = runner.run_block(state, targets, x, per_stream_targets=True)
-                y = y.cpu().numpy()
-                if float(peak) != float(np.max(np.abs(y))):
-                    raise AssertionError(f"ShardedStreams {name}: peak is not max |y|")
-                outs.append(y)
-            return outs, time.perf_counter() - t0
-
-        (outs, wall), counts = count_launches(run, exact={
-            "octaver_step": SHARD_BLOCKS * len(mesh_devs)})
-        runs[name] = (outs, wall, counts, state, runner)
+        maps = flagship_maps(tmap, SHARD_STREAMS)
+        outs, wall, counts, state = drive_streams(
+            runner, maps, xs, eager=eager, change=(SHARD_CHANGE_AT, change),
+            exact={"octaver_step": SHARD_BLOCKS * len(mesh_devs)})
+        if not eager:
+            check_shard_replays(f"shard streams flagship {len(mesh_devs)} shards", runner)
+        runs[name] = (outs, wall, counts, state, runner, maps)
+    graph_equals_eager("shard streams flagship", runs["sharded"][0], runs["eager"][0])
     pool = SessionPool(FLAGSHIP, n_slots=SHARD_STREAMS, device=devs[0])
     for s in range(SHARD_STREAMS):
         pool.claim()
@@ -2064,25 +2118,70 @@ def shard_streams_data(mono, devs):
             pool.update_param(s, eid, name, value(s))
     pool_outs = []
     for b in range(SHARD_BLOCKS):
+        if b == SHARD_CHANGE_AT:
+            pool.update_param(5, "o", "semitones", -7.0)
         out = pool.step_blocks({s: streams[s][b] for s in range(SHARD_STREAMS)})
         pool_outs.append(np.stack([out[s].T for s in range(SHARD_STREAMS)]))
     same_one, db_one = held_equal("ShardedStreams vs one device", runs["sharded"][0],
                                   runs["one"][0])
     same_pool, db_pool = held_equal("ShardedStreams vs the pool", runs["sharded"][0], pool_outs)
-    outs, wall, counts, state, runner = runs["sharded"]
+    outs, wall, counts, state, runner, maps = runs["sharded"]
     phase("shard_streams_data", mesh=runner.mesh.shape, streams=SHARD_STREAMS,
-          blocks=SHARD_BLOCKS, launches=counts, bitwise_vs_one_device=same_one,
-          vs_one_device_dbfs=db_one, bitwise_vs_pool=same_pool, vs_pool_dbfs=db_pool,
+          blocks=SHARD_BLOCKS, launches=counts, bitwise_vs_eager=True,
+          bitwise_vs_one_device=same_one, vs_one_device_dbfs=db_one,
+          bitwise_vs_pool=same_pool, vs_pool_dbfs=db_pool,
+          capture_s=[r.capture_s for r in runner._runners],
           step_ms_mean=1000.0 * wall / SHARD_BLOCKS,
+          eager_step_ms_mean=1000.0 * runs["eager"][1] / SHARD_BLOCKS,
           one_device_step_ms_mean=1000.0 * runs["one"][1] / SHARD_BLOCKS)
     return state, runner, maps, xs
+
+
+def shard_streams_chorus(mono, devs):
+    """``ShardedStreams`` of "Lush Chorus" over 16 streams (each its own
+    rate, stream 3's depth changed at block 20) on a (shards, 1) mesh, 40
+    blocks: the graph step bit for bit against the eager step and the
+    one-device runner, K3 once per shard per step, each replay traced."""
+    cfg = DEFAULT_PRESETS["Lush Chorus"]
+    chain, _, tmap = build_chain(cfg, FS, BLOCK, device=devs[0])
+    streams = pool_streams(mono, SHARD_STREAMS, SHARD_BLOCKS)
+    xs = [np.stack([streams[s][b] for s in range(SHARD_STREAMS)])[:, None, :]
+          for b in range(SHARD_BLOCKS)]
+
+    def maps_of():
+        maps = [{k: dict(v) for k, v in tmap.items()} for _ in range(SHARD_STREAMS)]
+        for s, mp in enumerate(maps):
+            mp["lc1"]["rate_hz"] = 0.3 + 0.1 * s
+        return maps
+
+    def change(maps):
+        maps[3]["lc1"]["depth_ms"] = 6.0
+
+    runs = {}
+    for name, mesh_devs, eager in (("sharded", devs, False), ("eager", devs, True),
+                                   ("one", devs[:1], False)):
+        runner = ShardedStreams(chain, make_mesh(devices=mesh_devs), SHARD_STREAMS)
+        runs[name] = drive_streams(runner, maps_of(), xs, eager=eager,
+                                   change=(SHARD_CHANGE_AT, change),
+                                   exact={"chorus_step": SHARD_BLOCKS * len(mesh_devs)})
+        if not eager:
+            check_shard_replays(f"shard streams chorus {len(mesh_devs)} shards", runner)
+    graph_equals_eager("shard streams Lush Chorus", runs["sharded"][0], runs["eager"][0])
+    same_one, db_one = held_equal("Lush Chorus ShardedStreams vs one device",
+                                  runs["sharded"][0], runs["one"][0])
+    phase("shard_streams_chorus", shards=len(devs), streams=SHARD_STREAMS,
+          blocks=SHARD_BLOCKS, launches=runs["sharded"][2], bitwise_vs_eager=True,
+          bitwise_vs_one_device=same_one, vs_one_device_dbfs=db_one,
+          step_ms_mean=1000.0 * runs["sharded"][1] / SHARD_BLOCKS,
+          eager_step_ms_mean=1000.0 * runs["eager"][1] / SHARD_BLOCKS)
 
 
 def shard_streams_model(devs):
     """A (2, 2) mesh over the reverb chain of tests/test_parallel.py and the
     convolution reverb with ``partition_multiple=2``: 8 streams, 12 blocks
-    of 512, each within its JAX bar (-120 / -100 dBFS) of the one-device
-    runner."""
+    of 512, the graph step bit for bit against the eager step (over four
+    cards, each row one capture across its two), and within its JAX bar
+    (-120 / -100 dBFS) of the one-device runner."""
     rows = {}
     rng = np.random.default_rng(5)
     xs = [(0.2 * rng.standard_normal((MODEL_STREAMS, 1, MODEL_BLOCK))).astype(np.float32)
@@ -2091,21 +2190,67 @@ def shard_streams_model(devs):
         chain, _, tmap = build_chain(cfg, FS, MODEL_BLOCK, device=devs[0])
         tg = chain.targets(tmap)
         outs = {}
-        for label, mesh_devs, m in (("model", devs[:4], 2), ("one", devs[:1], 1)):
+        for label, mesh_devs, m, eager in (("model", devs[:4], 2, False),
+                                           ("eager", devs[:4], 2, True),
+                                           ("one", devs[:1], 1, False)):
             runner = ShardedStreams(chain, make_mesh(devices=mesh_devs, model_parallel=m),
                                     MODEL_STREAMS)
             state, _ = runner.init_state()
             ys = []
             for x in xs:
-                state, y, _ = runner.run_block(state, tg, x)
+                state, y, _ = runner.run_block(state, tg, x, eager=eager)
                 ys.append(y.cpu().numpy())
+            if label == "model":
+                check_shard_replays(f"shard streams model {name}", runner)
+                cards = [len({d for d in row}) for row in runner.mesh.devices]
             outs[label] = ys
+        graph_equals_eager(f"model-sharded {name}", outs["model"], outs["eager"])
         worst = max(err_dbfs(a, b) for a, b in zip(outs["model"], outs["one"]))
         if not worst <= bar:
             raise AssertionError(f"model-sharded {name}: {worst:.1f} dBFS > {bar}")
-        rows[name] = {"vs_one_device_dbfs": worst, "bar_dbfs": bar}
+        rows[name] = {"bitwise_vs_eager": True, "vs_one_device_dbfs": worst, "bar_dbfs": bar,
+                      "cards_per_row": cards}
     phase("shard_streams_model", mesh={"data": 2, "model": 2}, streams=MODEL_STREAMS,
           blocks=MODEL_BLOCKS, block=MODEL_BLOCK, chains=rows)
+
+
+def shard_streams_timing(mono, devs):
+    """Host-clock p50/p99 of a synchronized ``ShardedStreams`` step (its
+    output and peak read back) of 16 streams, graph and eager, over 1, 2
+    and all shards, for the flagship and "Lush Chorus" (shared targets),
+    each run from zeroed counters with its kernel once per shard a step."""
+    rows = {}
+    for name, kernel in (("flagship", "octaver_step"), ("Lush Chorus", "chorus_step")):
+        chain, _, tmap = build_chain(preset_cfg(name), FS, BLOCK, device=devs[0])
+        targets = chain.targets(tmap)
+        streams = pool_streams(mono, SHARD_STREAMS, SHARD_TIMED + 5)
+        xs = [np.stack([streams[s][b] for s in range(SHARD_STREAMS)])[:, None, :]
+              for b in range(SHARD_TIMED + 5)]
+        for n in sorted({1, 2, len(devs)}):
+            runner = ShardedStreams(chain, make_mesh(devices=devs[:n]), SHARD_STREAMS)
+            for mode in ("graph", "eager"):
+                steps = SHARD_TIMED if mode == "graph" else SHARD_TIMED_EAGER
+                state, _ = runner.init_state()
+                for x in xs[:5]:
+                    state, y, peak = runner.run_block(state, targets, x, eager=mode == "eager")
+                    y.cpu(), float(peak)
+
+                def run():
+                    nonlocal state
+                    lat = []
+                    for x in xs[5:5 + steps]:
+                        t0 = time.perf_counter()
+                        state, y, peak = runner.run_block(state, targets, x,
+                                                          eager=mode == "eager")
+                        y.cpu(), float(peak)
+                        lat.append(1000.0 * (time.perf_counter() - t0))
+                    return lat
+
+                lat, _ = count_launches(run, exact={kernel: steps * n})
+                rows[f"{name} shards={n} {mode}"] = {**pctl(lat), "steps": steps}
+            runner.release()
+    phase("shard_streams_step", streams=SHARD_STREAMS, step_ms=rows, deadline_ms=BUDGET_MS)
+    return rows
 
 
 def shard_pool(mono, devs):
@@ -2229,7 +2374,9 @@ def shard(demo, mono, work):
     try:
         (state, runner, maps, xs), walls["streams_data"] = timed_phase(
             lambda: shard_streams_data(mono, devs))
-        for step, fn in (("streams_model", lambda: shard_streams_model(devs)),
+        for step, fn in (("streams_chorus", lambda: shard_streams_chorus(mono, devs)),
+                         ("streams_model", lambda: shard_streams_model(devs)),
+                         ("streams_timing", lambda: shard_streams_timing(mono, devs)),
                          ("pool", lambda: shard_pool(mono, devs)),
                          ("render_batch", lambda: shard_render(demo, devs)),
                          ("cli_batch", lambda: shard_cli(demo, work)),
@@ -2371,6 +2518,7 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "shard"]):
         raise SystemExit("usage: chip_smoke.py [--only shard]")
+    t_start = time.perf_counter()
     card, _ = probe(several=bool(argv))
     dev = torch.device("cuda")
     build()
@@ -2464,6 +2612,7 @@ def main(argv=None):
     # Phase 13: the compiled step.
     _, wall = timed_phase(lambda: step_graph(mono))
     phase("step_graph_wall", seconds=wall)
+    phase("smoke_wall", seconds=time.perf_counter() - t_start)
 
     print(json.dumps({"kernels": [
         {"name": "octaver_step", "route": "cuda", "source": "aefs_tpu_torch/csrc/resample.cu",

@@ -1,5 +1,6 @@
-"""The captured step on the card: the engine's and the pool's CUDA graph
-replays against the eager step on the same card, bit for bit.  Needs a
+"""The captured step on the card: the engine's, the pool's and
+``ShardedStreams``' CUDA graph replays against the eager step on the same
+card (or cards), bit for bit.  Needs a
 CUDA device and nvcc; skipped elsewhere.  Imports no JAX, so it also runs
 on a machine without it:
 
@@ -384,3 +385,163 @@ def test_entry_points_on_a_second_card(dev):
                          cwd=ROOT, timeout=600)
     assert res.returncode == 0, res.stderr[-4000:]
     assert json.loads(res.stdout.strip().splitlines()[-1]) == {"stream": True, "pool": True}
+
+
+# -- ShardedStreams: one captured graph per data shard ----------------------
+
+SHARD_STREAMS = 16
+# (preset, per-stream targets, the stream map change at block 20: stream,
+# effect id, param, value).
+SHARD_CHAINS = {
+    "flagship": (True, (5, "o", "semitones", -7.0)),
+    "Lush Chorus": (False, (None, "lc1", "rate_hz", 2.5)),
+}
+MODEL_CHAINS = {
+    "reverb": [{"effect_id": "r", "type": "reverb",
+                "params": {"rt60_s": 1.5, "damp": 0.3, "pre_delay_ms": 10,
+                           "mix_dry": 0.7, "mix_wet": 0.5}}],
+    "convreverb": [{"effect_id": "c", "type": "convreverb",
+                    "params": {"mix_dry": 0.7, "mix_wet": 0.4},
+                    "ir_seconds": 0.4, "partition_multiple": 2}],
+}
+
+
+def _sharded_run(cfg, devices, model_parallel, per_stream, change, eager, blocks, n=N,
+                 between=None):
+    """``ShardedStreams`` over ``devices``: (y per block, peak per block, the
+    joined final state), the targets changed at block CHANGE_AT and
+    ``between()`` called before the middle block."""
+    from aefs_tpu_torch.core.chain import build_chain
+    from aefs_tpu_torch.parallel.mesh import ShardedStreams, make_mesh
+
+    chain, _, tmap = build_chain(cfg, FS, n, channels_in=1, channels_out=2, device=devices[0])
+    runner = ShardedStreams(chain, make_mesh(devices=devices, model_parallel=model_parallel),
+                            SHARD_STREAMS)
+    maps = [{k: dict(v) for k, v in tmap.items()} for _ in range(SHARD_STREAMS)]
+
+    def targets():
+        return runner.batch_targets(maps) if per_stream else chain.targets(maps[0])
+
+    state, _ = runner.init_state()
+    tg, ys, peaks = targets(), [], []
+    for k, x in enumerate(blocks):
+        if k == len(blocks) // 2 and between is not None:
+            between()
+        if k == CHANGE_AT and change is not None:
+            stream, eid, param, value = change
+            for s in ([stream] if per_stream else range(SHARD_STREAMS)):
+                maps[s][eid][param] = value
+            tg = targets()
+        state, y, peak = runner.run_block(state, tg, x, per_stream_targets=per_stream,
+                                          eager=eager)
+        ys.append(y.cpu().numpy())
+        peaks.append(float(peak))
+    joined = state.join()
+    runner.release()
+    return ys, peaks, joined
+
+
+def _shard_blocks(seed, n=N, count=BLOCKS):
+    rng = np.random.default_rng(seed)
+    return [(0.3 * rng.standard_normal((SHARD_STREAMS, 1, n))).astype(np.float32)
+            for _ in range(count)]
+
+
+def _same_states(a, b):
+    from aefs_tpu_torch.core.convert import flatten_like_jax
+
+    for u, v in zip(flatten_like_jax(a), flatten_like_jax(b)):
+        assert torch.equal(u.cpu(), v.cpu())
+
+
+@pytest.mark.parametrize("name", list(SHARD_CHAINS))
+def test_sharded_streams_graph_matches_eager(dev, name):
+    """16 streams on four shards of the one card, 40 blocks with a target
+    change at block 20: the graph step (one replay per shard) bit-equal to
+    the eager step, output, peak and joined state; K1 (flagship) or K3
+    ("Lush Chorus") credited once per shard per replay."""
+    from aefs_tpu_torch.ops.kernels.resample import chorus_step, octaver_step
+
+    per_stream, change = SHARD_CHAINS[name]
+    cfg, blocks = _presets()[name], _shard_blocks(17)
+    want = _sharded_run(cfg, [dev] * 4, 1, per_stream, change, True, blocks)
+    k1, k3 = octaver_step.launches, chorus_step.launches
+    got = _sharded_run(cfg, [dev] * 4, 1, per_stream, change, False, blocks)
+    k1, k3 = octaver_step.launches - k1, chorus_step.launches - k3
+    assert all(np.all(np.isfinite(y)) for y in got[0])
+    for k, (g, w) in enumerate(zip(got[0], want[0])):
+        np.testing.assert_array_equal(g, w, err_msg=f"{name} block {k}")
+    assert got[1] == want[1]
+    _same_states(got[2], want[2])
+    types = [c["type"] for c in cfg]
+    assert k1 == (4 * BLOCKS if "octaver" in types else 0)
+    assert k3 == (4 * BLOCKS if "chorus" in types else 0)
+
+
+@pytest.mark.parametrize("name", list(MODEL_CHAINS))
+def test_sharded_model_mesh_graph_matches_eager(dev, name):
+    """A (2, 2) mesh on the one card (the reverb's comb bank, the
+    convolution reverb's partition history split as ``ModelShards``), 20
+    blocks of 512: the graph step bit-equal to the eager step."""
+    blocks = _shard_blocks(23, n=512, count=20)
+    cfg = MODEL_CHAINS[name]
+    want = _sharded_run(cfg, [dev] * 4, 2, False, None, True, blocks, n=512)
+    got = _sharded_run(cfg, [dev] * 4, 2, False, None, False, blocks, n=512)
+    for k, (g, w) in enumerate(zip(got[0], want[0])):
+        np.testing.assert_array_equal(g, w, err_msg=f"{name} block {k}")
+    _same_states(got[2], want[2])
+
+
+def test_sharded_streams_across_cards(dev):
+    """Shards whose rows span cards: the flagship over a (2, 1) mesh of
+    cuda:0 and cuda:1, and the reverb and the convolution reverb over a
+    (2, 2) mesh of four cards (on two: a (1, 2) mesh), each row one capture
+    across its cards; the allocator's cache emptied mid-run (as every new
+    capture does), which must leave the graphs' side-card memory alone.
+    Each bit-equal to its eager step."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two CUDA cards: a mesh row across cuda:0 and cuda:1")
+    cards = [torch.device("cuda", i) for i in range(4 if count >= 4 else 2)]
+    runs = [(_presets()["flagship"], cards[:2], 1, True, SHARD_CHAINS["flagship"][1],
+             _shard_blocks(29, count=20), N)]
+    runs += [(cfg, cards, 2, False, None, _shard_blocks(31, n=512, count=20), 512)
+             for cfg in MODEL_CHAINS.values()]
+    for cfg, devices, m, per_stream, change, xs, n in runs:
+        want = _sharded_run(cfg, devices, m, per_stream, change, True, xs, n=n)
+        got = _sharded_run(cfg, devices, m, per_stream, change, False, xs, n=n,
+                           between=torch.cuda.empty_cache)
+        for k, (g, w) in enumerate(zip(got[0], want[0])):
+            np.testing.assert_array_equal(
+                g, w, err_msg=f"{cfg[0]['type']} over {len(devices)} cards, block {k}")
+        _same_states(got[2], want[2])
+
+
+def test_sharded_rebuilds_keep_card_memory_level(dev):
+    """20 ``ShardedStreams`` of the flagship over four shards of the card,
+    each stepped (capturing four graphs) and dropped with gc disabled: the
+    card's allocated memory after each is what it was after the first."""
+    from aefs_tpu_torch.core.chain import build_chain
+    from aefs_tpu_torch.parallel.mesh import ShardedStreams, make_mesh
+
+    chain, _, tmap = build_chain(_presets()["flagship"], FS, N, channels_in=1, device=dev)
+    targets = chain.targets(tmap)
+    x = _shard_blocks(3, count=1)[0]
+    was = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        refs, allocated = [], []
+        for _ in range(20):
+            runner = ShardedStreams(chain, make_mesh(devices=[dev] * 4), SHARD_STREAMS)
+            state, _ = runner.init_state()
+            runner.run_block(state, targets, x)
+            refs.append(weakref.ref(runner))
+            del runner, state
+            torch.cuda.synchronize()
+            allocated.append(torch.cuda.memory_allocated(dev))
+        assert all(r() is None for r in refs), "a ShardedStreams outlived its last reference"
+        assert max(allocated[1:]) <= allocated[0], allocated
+    finally:
+        if was:
+            gc.enable()

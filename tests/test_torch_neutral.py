@@ -38,7 +38,8 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("rel", PORT_FILES + ["chip_smoke.py", "scripts/profile_port.py"])
+@pytest.mark.parametrize("rel", PORT_FILES + ["chip_smoke.py", "scripts/profile_port.py",
+                                         "scripts/shard_dispatch.py"])
 def test_no_jax_import(rel):
     bad = sorted(set(_imported_roots(ROOT / rel)) & FORBIDDEN)
     assert not bad, (rel, bad)
