@@ -26,6 +26,7 @@ fallback.
 from __future__ import annotations
 
 import asyncio
+import itertools
 import json
 import os
 import queue
@@ -45,7 +46,7 @@ from aefs_tpu_torch.core.config import (
 from aefs_tpu_torch.core.fileopts import file_static_overrides
 from aefs_tpu_torch.core.packing import Staging
 from aefs_tpu_torch.engine.wavio import decode_wav, encode_wav_int16
-from aefs_tpu_torch.utils.metrics import BlockTimer
+from aefs_tpu_torch.utils.metrics import TRACER, BlockTimer
 from aefs_tpu_torch.utils.platform import device_scope, require_device
 
 try:  # optional, absent in server images (reference engine.py:12-15)
@@ -238,6 +239,9 @@ class AudioEngine:
         # "done": Event}; _tap_plots appends input blocks while set.
         self._noise_capture = None
         self.metrics = BlockTimer(self.current_sample_rate, BLOCKSIZE)
+        # Request ids of the tracer's spans: stream blocks and uploads.
+        self._blocks = itertools.count()
+        self._uploads = itertools.count()
         self.build_chain([])
 
     @property
@@ -494,28 +498,38 @@ class AudioEngine:
         return chain_config
 
     # -- block streaming ------------------------------------------------
-    def _step_held(self, in_block):
-        """One block step; the caller holds the step lock and has the card
-        current -> (the chain it ran on, y).  The block goes through
-        pinned staging into the runner's static x (no wait on the stream),
-        then the runner steps: one graph replay on the card.  A chain
-        swapped mid-block keeps its own state, as in the reference's benign
-        rebuild race."""
+    def _step_held(self, in_block, seq):
+        """One block step of request ``seq``; the caller holds the step
+        lock and has the card current -> (the chain it ran on, y).  The
+        block goes through pinned staging into the runner's static x (no
+        wait on the stream), then the runner steps: one graph replay on
+        the card.  A chain swapped mid-block keeps its own state, as in the
+        reference's benign rebuild race."""
         with self._lock:
             chain, runner = self.chain, self._runner
-        self._staging.put(np.asarray(in_block, np.float32).T, runner.x)
-        return chain, runner.run()[1]
+        with TRACER.span("engine.stage", seq):
+            self._staging.put(np.asarray(in_block, np.float32).T, runner.x)
+        with TRACER.span("chain.replay", seq):
+            y = runner.run()[1]
+        if runner.graph_kernels is not None:
+            TRACER.count("chain.graph_kernels", runner.graph_kernels)
+        return chain, y
 
     def process_stream_block(self, in_block: np.ndarray) -> np.ndarray:
         """One hot-path block: (N, ci) float32 in -> (N, co) float32 out.
         Timed by ``self.metrics``; feeds the plot queues like the
         reference's PlotDataTap chain heads/tails (core.py:89-106)."""
-        with self.metrics.block(), device_scope(self.device):
+        seq = next(self._blocks)
+        with self.metrics.block(seq), device_scope(self.device):
             with self._step_lock:
-                _, y = self._step_held(in_block)
-                handle = self._readback.launch(y)
-            out = self._readback.collect(handle)
-        self._tap_plots(in_block, out)
+                _, y = self._step_held(in_block, seq)
+                with TRACER.span("engine.readback", seq):
+                    handle = self._readback.launch(y)
+            with TRACER.span("engine.collect", seq):
+                out = self._readback.collect(handle)
+        with TRACER.span("engine.tap", seq):
+            self._tap_plots(in_block, out)
+        TRACER.count("engine.blocks")
         return out
 
     def process_stream_block_pipelined(self, in_block: np.ndarray) -> np.ndarray:
@@ -524,17 +538,23 @@ class AudioEngine:
         The host enqueues block k while the device finishes block k-1, and
         waits only on block k-1's readback.  Priming and a chain swap
         return one silent block."""
-        with self.metrics.block(), device_scope(self.device):
+        seq = next(self._blocks)
+        with self.metrics.block(seq), device_scope(self.device):
             with self._step_lock:
-                chain, y = self._step_held(in_block)
-                handle = self._pipeline.launch(y)
+                chain, y = self._step_held(in_block, seq)
+                with TRACER.span("engine.readback", seq):
+                    handle = self._pipeline.launch(y)
                 with self._lock:
                     pending, self._pending = self._pending, (chain, handle)
                 if pending is not None and pending[0] is chain:
-                    out = self._pipeline.collect(pending[1])
+                    with TRACER.span("engine.collect", seq):
+                        out = self._pipeline.collect(pending[1])
                 else:
+                    TRACER.count("engine.silent_blocks")
                     out = np.zeros((in_block.shape[0], CHANNELS_OUT), np.float32)
-        self._tap_plots(in_block, out)
+        with TRACER.span("engine.tap", seq):
+            self._tap_plots(in_block, out)
+        TRACER.count("engine.blocks")
         return out
 
     def _tap_plots(self, in_block, out):
@@ -737,55 +757,77 @@ class AudioEngine:
             device=self.device,
         )
 
-    async def process_wav_file(self, contents: str, websocket):
+    def _render(self, audio, fs, rid):
+        """``process_file_array`` as an upload makes it (the executor's
+        side of the hop), timed as ``engine.render`` of upload ``rid``."""
+        with TRACER.span("engine.render", rid):
+            return self.process_file_array(audio, fs)
+
+    async def process_wav_file(self, contents: str, websocket, taken=None):
         """Render an uploaded WAV (base64 data URL) and send the
-        ``file_processed`` payload through ``websocket.send``."""
+        ``file_processed`` payload through ``websocket.send``.  Timed as
+        ``front.upload`` from ``taken`` (the ``TRACER.clock()`` read when
+        the backend's handler took the message; else now) until ``send``
+        returns; its rid names the upload's spans on both sides of the
+        executor hop."""
+        upload = TRACER.span("front.upload", next(self._uploads), taken)
         if self.is_processing_file:
             print("Warning. A file is already being process. Ignoring new request")
+            upload.close()
             return
         self.is_processing_file = True
+        rid = upload.rid
         # Kept for the reprocess_file command and the file stream.
         self.last_file_contents = contents
         try:
             print("Info: Processing WAV")
             from aefs_tpu_torch import native
 
-            audio, fs = _decode_data_url(contents)
+            with TRACER.span("front.decode", rid):
+                audio, fs = _decode_data_url(contents)
             loop = asyncio.get_running_loop()
-            mono, processed = await loop.run_in_executor(
-                None, self.process_file_array, audio, fs
-            )
+            mono, processed = await loop.run_in_executor(None, self._render, audio, fs, rid)
 
             def serialize():
-                wav_bytes = encode_wav_int16(processed, fs)
-                b64 = native.b64encode(wav_bytes).decode("ascii")
-                head_dict = {
-                    "type": "file_processed",
-                    "original_b64": contents,
-                    "processed_b64": f"data:audio/wav;base64,{b64}",
-                    "sample_rate": int(fs),
-                }
+                analysis = None
                 if os.environ.get("AEFS_SERVER_ANALYSIS", "1") == "1":
                     # Windowed spectrum/chroma for playback scrubbing.
                     from aefs_tpu_torch.utils.analysis import PlotAnalyzer
 
-                    try:
-                        head_dict["analysis"] = PlotAnalyzer(fs, device=self.device).analyze_file(
-                            mono[:, 0], processed.mean(axis=1)
-                        )
-                    except RuntimeError as e:
-                        print(f"Warning: file analysis unavailable: {e}")
-                head = json.dumps(head_dict)
-                return (
-                    head[:-1]
-                    + ',"original_samples":' + native.json_f32_array(mono.flatten())
-                    + ',"processed_samples":' + native.json_f32_array(processed.mean(axis=1))
-                    + "}"
-                )
+                    with TRACER.span("front.analysis", rid):
+                        try:
+                            analysis = PlotAnalyzer(fs, device=self.device).analyze_file(
+                                mono[:, 0], processed.mean(axis=1)
+                            )
+                        except RuntimeError as e:
+                            print(f"Warning: file analysis unavailable: {e}")
+                with TRACER.span("front.serialize", rid):
+                    wav_bytes = encode_wav_int16(processed, fs)
+                    b64 = native.b64encode(wav_bytes).decode("ascii")
+                    head_dict = {
+                        "type": "file_processed",
+                        "original_b64": contents,
+                        "processed_b64": f"data:audio/wav;base64,{b64}",
+                        "sample_rate": int(fs),
+                    }
+                    if analysis is not None:
+                        head_dict["analysis"] = analysis
+                    head = json.dumps(head_dict)
+                    return (
+                        head[:-1]
+                        + ',"original_samples":' + native.json_f32_array(mono.flatten())
+                        + ',"processed_samples":' + native.json_f32_array(processed.mean(axis=1))
+                        + "}"
+                    )
 
-            await websocket.send(await loop.run_in_executor(None, serialize))
+            reply = await loop.run_in_executor(None, serialize)
+            with TRACER.span("front.send", rid):
+                await websocket.send(reply)
+            TRACER.count("front.uploads")
+            TRACER.count("front.reply_bytes", len(reply))
         except Exception as e:  # a bad upload is reported, the session goes on
             print(f"Error processing WAV file: {e}")
         finally:
+            upload.close()
             print("Success: Finished processing WAV file")
             self.is_processing_file = False

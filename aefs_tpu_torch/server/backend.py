@@ -33,6 +33,7 @@ import numpy as np
 
 from aefs_tpu_torch.core.config import PLOT_FPS, PLOT_QUEUE_BLOCKS, WS_MAX_MESSAGE
 from aefs_tpu_torch.engine.engine import AudioEngine
+from aefs_tpu_torch.utils.metrics import TRACER
 from aefs_tpu_torch.utils.platform import select_device
 
 try:
@@ -250,6 +251,7 @@ async def handler(websocket):
             task.add_done_callback(file_tasks.discard)
 
         async for message in websocket:
+            taken = TRACER.clock()  # an upload's front.upload span starts here
             try:
                 cmd = json.loads(message)
                 command = cmd.get("command")
@@ -288,7 +290,7 @@ async def handler(websocket):
                     audio_engine.update_param(
                         cmd.get("effect_id"), cmd.get("param", "rate_hz"), hz)
                 elif command == "process_file":
-                    spawn(audio_engine.process_wav_file(cmd.get("contents"), websocket))
+                    spawn(audio_engine.process_wav_file(cmd.get("contents"), websocket, taken))
                 elif command == "reprocess_file":
                     # Re-run the LAST uploaded file through the CURRENT chain
                     # without re-shipping the payload.
@@ -296,7 +298,7 @@ async def handler(websocket):
                         print("Warning: no file uploaded yet; nothing to reprocess")
                     else:
                         spawn(audio_engine.process_wav_file(
-                            audio_engine.last_file_contents, websocket))
+                            audio_engine.last_file_contents, websocket, taken))
                 elif command == "stream_file":
                     # Play the uploaded file through the LIVE path so param
                     # changes apply while it plays.  Decode and a possible
@@ -394,7 +396,7 @@ async def handler(websocket):
                     # Operational metrics: per-block p50/p99 and deadline
                     # misses (the xrun counter the reference never surfaced,
                     # engine.py:157-158).
-                    await websocket.send(json.dumps({
+                    stats = {
                         "type": "stats",
                         "engine": audio_engine.metrics.snapshot(),
                         "is_running": audio_engine.is_running,
@@ -402,7 +404,10 @@ async def handler(websocket):
                         # drop counters of the native SPSC plot rings
                         "plot_drops": {k: getattr(q, "dropped", 0)
                                        for k, q in data_queues.items()},
-                    }))
+                    }
+                    if TRACER.enabled:  # AEFS_TRACE=1: the program's spans
+                        stats["trace"] = TRACER.snapshot()
+                    await websocket.send(json.dumps(stats))
             except json.JSONDecodeError:
                 print(f"Error: message is not valid JSON: {message}")
             except Exception as e:  # a failed command is reported, the session goes on

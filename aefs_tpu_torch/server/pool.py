@@ -55,7 +55,6 @@ import gc
 import json
 import os
 import threading
-import time
 
 import numpy as np
 import torch
@@ -71,6 +70,7 @@ from aefs_tpu_torch.core.config import (
     WS_MAX_MESSAGE,
 )
 from aefs_tpu_torch.parallel import mesh
+from aefs_tpu_torch.utils.metrics import TRACER
 from aefs_tpu_torch.utils.platform import device_scope, require_device, select_device
 
 try:
@@ -232,7 +232,8 @@ class SessionPool:
         self._step_lock = threading.Lock()
         self._pending_resets = []
         self._free = list(range(self.n_slots))
-        self.last_step_ms = 0.0
+        self.last_step_ms = 0.0  # the last step's pool.step span
+        self.generation = 0  # steps made: the tracer's request id of a step
         # One runner per shard, warmed up and captured off the serving path.
         # The warm-up is discarded (the runner restores its buffers): a
         # kept warm step would advance every slot's phase and glide state
@@ -412,7 +413,9 @@ class SessionPool:
                 tbuf = self._tbuf.copy()
             if resets:
                 self._apply_pending_resets(resets)
-            t0 = time.perf_counter()
+            self.generation += 1
+            TRACER.count("pool.steps")
+            step = TRACER.timed("pool.step", self.generation)
             ys = self._step(tbuf, x)
             prev, self._inflight = self._inflight, (self._readback.launch(ys), tuple(blocks))
             # Advance the shared grid phase(s) for the block just enqueued
@@ -423,10 +426,12 @@ class SessionPool:
                         adv, mod = model.grid_phase_advance(self.blocksize)
                         self._tbuf[r, :] = (self._tbuf[r, 0] + adv) % mod
             if prev is None:
-                self.last_step_ms = (time.perf_counter() - t0) * 1000.0
+                step.close()
+                self.last_step_ms = step.ns / 1e6
                 return None
             out = self._collect_held(prev)  # waits on dispatch k-1 only
-            self.last_step_ms = (time.perf_counter() - t0) * 1000.0
+            step.close()
+            self.last_step_ms = step.ns / 1e6
         return {slot: out[slot].T for slot in prev[1]}
 
     def _collect_held(self, inflight):
@@ -707,29 +712,46 @@ class _Batcher:
 
     def __init__(self, pool: SessionPool):
         self.pool = pool
-        self._pending = {}  # slot -> (audio, future)
+        self._pending = {}  # slot -> (audio, future, submitted: a TRACER.clock())
         self._cv = asyncio.Condition()
 
     @staticmethod
-    def _deliver(batch, outs):
-        """Resolve one generation's futures from its readback results."""
+    def _deliver(batch, outs, gen):
+        """Resolve one generation's futures from its readback results, each
+        with (output, the generation, when it was resolved), timed as
+        ``pool.deliver``."""
         if batch is None:
             return
-        for slot, (_a, fut) in batch.items():
-            if fut.done():
-                continue
-            if outs is not None and slot in outs:
-                fut.set_result(outs[slot])
-            else:
-                fut.set_exception(RuntimeError("pool step lost the block"))
+        with TRACER.span("pool.deliver", gen):
+            resolved = TRACER.clock()
+            for slot, (_a, fut, _t) in batch.items():
+                if fut.done():
+                    continue
+                if outs is not None and slot in outs:
+                    fut.set_result((outs[slot], gen, resolved))
+                else:
+                    fut.set_exception(RuntimeError("pool step lost the block"))
 
     @staticmethod
     def _fail(batch, e):
         if batch is None:
             return
-        for _slot, (_a, fut) in batch.items():
+        for _slot, (_a, fut, _t) in batch.items():
             if not fut.done():
                 fut.set_exception(RuntimeError(f"pool step failed: {e}"))
+
+    @staticmethod
+    def _in_executor(gen, fn, *args):
+        """``fn(*args)`` for ``run_in_executor``, its wait for a worker
+        thread (the executor is shared with the front) timed as
+        ``pool.executor`` of generation ``gen``."""
+        called = TRACER.clock()
+
+        def call():
+            TRACER.record("pool.executor", gen, called, TRACER.clock())
+            return fn(*args)
+
+        return call
 
     async def run(self):
         """Collect submissions arriving close together into one dispatch.
@@ -742,7 +764,8 @@ class _Batcher:
         slots, realtime drop-late rules."""
         loop = asyncio.get_running_loop()
         pipelined = os.environ.get("AEFS_POOL_PIPELINE", "1") == "1"
-        prev = None  # in-flight generation: {slot: (audio, future)}
+        prev = None  # in-flight generation: {slot: (audio, future, submitted)}
+        prev_gen = None  # its step generation (the tracer's request id)
         while True:
             flush = False
             async with self._cv:
@@ -769,53 +792,72 @@ class _Batcher:
                 batch = {}
 
             if not batch:  # idle flush of the in-flight generation
+                TRACER.count("pool.idle_flushes")
                 try:
-                    outs = await loop.run_in_executor(None, self.pool.flush_pipeline)
+                    outs = await loop.run_in_executor(
+                        None, self._in_executor(prev_gen, self.pool.flush_pipeline))
                 except Exception as e:
+                    TRACER.count("pool.failed_steps")
                     self._fail(prev, e)
                     self.pool.drop_pipeline()
                     prev = None
                     continue
-                self._deliver(prev, outs)
+                self._deliver(prev, outs, prev_gen)
                 prev = None
                 continue
 
-            blocks = {slot: audio for slot, (audio, _f) in batch.items()}
+            # This batch's step is the pool's next generation: only this
+            # batcher steps its pool.
+            gen = self.pool.generation + 1
+            taken = TRACER.clock()
+            for _a, _f, submitted in batch.values():
+                TRACER.record("pool.wait", gen, submitted, taken)
+            TRACER.count("pool.blocks", len(batch))
+            blocks = {slot: audio for slot, (audio, _f, _t) in batch.items()}
             if pipelined:
                 try:
                     outs = await loop.run_in_executor(
-                        None, self.pool.step_blocks_pipelined, blocks)
+                        None, self._in_executor(gen, self.pool.step_blocks_pipelined, blocks))
                 except Exception as e:
                     # A failed step must kill neither the batcher task (every
                     # later submission would hang on a dead queue) nor the
                     # sessions: fail both generations' waiters and restart
                     # the pipeline clean.
+                    TRACER.count("pool.failed_steps")
                     self._fail(prev, e)
                     self._fail(batch, e)
                     self.pool.drop_pipeline()
                     prev = None
                     continue
-                self._deliver(prev, outs)
-                prev = batch
+                self._deliver(prev, outs, prev_gen)
+                prev, prev_gen = batch, gen
             else:
                 try:
-                    outs = await loop.run_in_executor(None, self.pool.step_blocks, blocks)
+                    outs = await loop.run_in_executor(
+                        None, self._in_executor(gen, self.pool.step_blocks, blocks))
                 except Exception as e:
+                    TRACER.count("pool.failed_steps")
                     self._fail(batch, e)
                     continue
-                self._deliver(batch, outs)
+                self._deliver(batch, outs, gen)
 
     async def submit(self, slot: int, audio: np.ndarray):
+        """Queue one block of ``slot``'s session -> (its output, the step
+        generation that delivered it, when it was resolved: a
+        ``TRACER.clock()``)."""
         fut = asyncio.get_running_loop().create_future()
+        submitted = TRACER.clock()
         async with self._cv:
             # One in-flight block per session: a second submission before
             # the first resolves replaces it (drop-late, realtime rules); the
             # displaced future is resolved so its waiter does not hang.
             old = self._pending.get(slot)
+            if old is not None:
+                TRACER.count("pool.superseded")
             if old is not None and not old[1].done():
                 old[1].set_exception(
                     RuntimeError("block superseded by a newer submission (drop-late)"))
-            self._pending[slot] = (audio, fut)
+            self._pending[slot] = (audio, fut, submitted)
             self._cv.notify()
         return await fut
 
@@ -885,7 +927,7 @@ class PoolServer:
                     command = cmd.get("command")
                     if command == "stream_block":
                         audio = np.asarray(cmd.get("audio", []), np.float32)
-                        out = await batcher.submit(slot, audio)
+                        out, gen, resolved = await batcher.submit(slot, audio)
                         seq += 1
                         head = json.dumps({"type": "processed_block", "seq": seq})
                         await websocket.send(
@@ -893,6 +935,7 @@ class PoolServer:
                             + ',"output":' + native.json_f32_array(out[:, 0])
                             + ',"output_r":' + native.json_f32_array(out[:, 1])
                             + "}")
+                        TRACER.record("pool.reply", gen, resolved, TRACER.clock())
                     elif command == "build_chain":
                         # Per-session topology: migrate this session's slot
                         # to the bucket serving the requested chain,
@@ -943,7 +986,7 @@ class PoolServer:
                         # (their steps share the device).
                         total_ms = sum(p.last_step_ms for p in buckets.values()
                                        if p.active_count())
-                        await websocket.send(json.dumps({
+                        stats = {
                             "type": "pool_stats",
                             # the SESSION's bucket
                             "slots": pool.n_slots,
@@ -962,7 +1005,10 @@ class PoolServer:
                                  "step_ms": round(p.last_step_ms, 3)}
                                 for p in buckets.values()
                             ],
-                        }))
+                        }
+                        if TRACER.enabled:  # AEFS_TRACE=1: the program's spans
+                            stats["trace"] = TRACER.snapshot()
+                        await websocket.send(json.dumps(stats))
                 except json.JSONDecodeError:
                     print(f"Error: message is not valid JSON: {message!r}")
                 except Exception as e:

@@ -164,6 +164,66 @@ def test_step_runner_replays_what_it_captured(dev):
     assert not chain._runners
 
 
+def test_graph_kernel_nodes_and_the_capture_span(dev):
+    """A capture counts its graph's kernel nodes (``graph_kernels``); a
+    replay traced by the profiler runs at least those and at most those
+    and its copy and fill nodes (a device-to-device copy node may run as a
+    copy kernel); ``capture_s`` is the tracer's ``chain.capture`` span; a
+    release forgets the count, and a capture with the tracer disabled
+    takes none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aefs_tpu_torch.core.chain import build_chain
+    from aefs_tpu_torch.core.packing import NODE_KERNEL, NODE_MEMCPY, NODE_MEMSET, graph_nodes
+    from aefs_tpu_torch.utils.metrics import TRACER
+
+    TRACER.reset()
+    TRACER.enable()
+    chain = None
+    try:
+        chain, state, tmap = build_chain(_presets()["flagship"], FS, N, channels_in=1,
+                                         device=dev)
+        chain.warmup(state, chain.targets(tmap))
+        runner = chain.packed_step()
+        ex = TRACER.export()
+        (_label, t0, t1), = ex["spans"]["chain.capture"]
+        assert runner.capture_s == (t1 - t0) / 1e9
+        assert ex["counters"]["chain.captures"] == 1
+        kinds = graph_nodes(runner.graph)
+        assert runner.graph_kernels == kinds[NODE_KERNEL] > 100
+        most = kinds[NODE_KERNEL] + kinds.get(NODE_MEMCPY, 0) + kinds.get(NODE_MEMSET, 0)
+        seen = 0
+        for _ in range(3):  # the profiler now and then drops a replay's records
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    runner.run()
+                torch.cuda.synchronize()
+            events = list(prof.profiler.kineto_results.events())
+            launches = {ev.correlation_id() for ev in events
+                        if ev.name().startswith("cudaGraphLaunch")}
+            per = {}
+            for ev in events:
+                if (ev.device_type() == torch.autograd.DeviceType.CUDA
+                        and ev.correlation_id() in launches
+                        and not ev.name().startswith(("Memcpy", "Memset"))):
+                    per[ev.correlation_id()] = per.get(ev.correlation_id(), 0) + 1
+            seen = max([seen, *per.values()])
+            if seen >= runner.graph_kernels:
+                break
+        assert runner.graph_kernels <= seen <= most, (seen, kinds)
+        chain.release()
+        assert runner.graph_kernels is None
+        TRACER.disable()  # untraced, the graph is not kept and not counted
+        runner = chain.packed_step()
+        runner.run()
+        assert runner.graph_kernels is None and runner.capture_s > 0
+    finally:
+        TRACER.disable()
+        TRACER.reset()
+        if chain is not None:
+            chain.release()
+
+
 def _pool_reference(pool, chain, steps):
     """Replays ``steps`` [(blocks, resets)] through ``chain.process_block``
     eagerly at the pool's width, with the pool's own target buffer

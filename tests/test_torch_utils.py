@@ -1,5 +1,5 @@
 """The port's utilities on the CPU against the JAX package's: device
-selection, ``BlockTimer`` and ``trace``, ``PlotAnalyzer`` (mirrors
+selection, ``BlockTimer``, ``PlotAnalyzer`` (mirrors
 tests/test_analysis.py), the tempo helpers (mirrors tests/test_tempo.py)
 and the audio-device helpers without ``sounddevice``.
 
@@ -9,7 +9,6 @@ spacing at the rounded values; the spectrum is compared where JAX's value
 is above -100 dB, well over the 1e-7 magnitude floor (-140 dB) where one
 package's FFT rounding noise is all there is."""
 
-import json
 
 import numpy as np
 import pytest
@@ -20,7 +19,7 @@ from aefs_tpu.utils.metrics import BlockTimer as JaxBlockTimer
 from aefs_tpu_torch.engine import devices
 from aefs_tpu_torch.utils import tempo
 from aefs_tpu_torch.utils.analysis import FFT_SIZE, PlotAnalyzer
-from aefs_tpu_torch.utils.metrics import BlockTimer, trace
+from aefs_tpu_torch.utils.metrics import BlockTimer
 from aefs_tpu_torch.utils.platform import require_device, select_device
 
 from helpers import noise, tones
@@ -51,7 +50,7 @@ def test_select_device_defaults_to_the_card(monkeypatch):
     assert require_device("cpu") == torch.device("cpu")
 
 
-# -- BlockTimer and trace ------------------------------------------------------
+# -- BlockTimer ----------------------------------------------------------------
 
 @pytest.mark.parametrize("times", [
     [],
@@ -73,13 +72,6 @@ def test_block_timer_counts_a_block_that_raises():
             raise ValueError("device error")
     snap = timer.snapshot()
     assert snap["blocks"] == 1 and snap["deadline_ms"] == round(1000 * 256 / 22050, 3)
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with trace(str(tmp_path / "tr")) as d:
-        torch.fft.rfft(torch.ones(1024)).abs().sum()
-    events = json.loads((tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
-    assert d == str(tmp_path / "tr") and events
 
 
 # -- PlotAnalyzer ----------------------------------------------------------------
