@@ -7,10 +7,10 @@ the sources and flags so an edited source rebuilds), then loaded with
 ctypes.  No PyTorch headers are compiled, so the build takes seconds.
 
 Each kernel module (``resample.py``: K1, K3, the octaver's and the
-chorus's block steps; ``comb.py``: K2, K4) holds the wrappers, their plain
-versions and one launch counter per wrapper.  A wrapper takes the plain
-version only for CPU tensors; on CUDA tensors it launches the kernel or
-raises.  A sharded step launches on every card from one thread: each
+chorus's block steps; ``comb.py``: K2, K4; ``biquad.py``: K5, the biquad's
+streaming block step) holds the wrappers, their plain versions and one
+launch counter per wrapper.  A wrapper takes the plain version only for
+CPU tensors; on CUDA tensors it launches the kernel or raises.  A sharded step launches on every card from one thread: each
 wrapper makes its operands' card current around the call for PyTorch, and
 passes its index to the C entry, which makes it current for the library's
 own CUDA runtime before launching.
@@ -106,6 +106,8 @@ def library():
             lib.aefs_comb_sums.restype = i
             lib.aefs_comb_chunks.argtypes = [p, i, i, i, p, p, p, p, i, i, i, p, p, i, p]
             lib.aefs_comb_chunks.restype = i
+            lib.aefs_biquad_step.argtypes = [p, ll, ll, i, i, i, p, i] + [p] * 5 + [i, p]
+            lib.aefs_biquad_step.restype = i
             _lib = lib
     return _lib
 

@@ -431,6 +431,12 @@ def linrec2_file_fir(x, b0, b1, b2, a1, a2, x1, x2, y1, y2, chunk: int = 256):
     return y.reshape(*lead, m * c)[..., :n]
 
 
+# Signals of this many samples or more take the biquad's chunked Toeplitz
+# solve; shorter ones (the streaming blocks) the companion scan, which the
+# card runs as one kernel (ops/kernels/biquad.py).
+BIQUAD_FILE_SOLVE = 1024
+
+
 def biquad_block(x, b0, b1, b2, a1, a2, state):
     """Direct-Form-I biquad over a block, per channel.
 
@@ -454,7 +460,7 @@ def biquad_block(x, b0, b1, b2, a1, a2, state):
     b0, b1, b2, a1, a2 = (c.double() for c in (b0, b1, b2, a1, a2))
     n = x.shape[-1]
     x1, x2, y1, y2 = state[..., 0], state[..., 1], state[..., 2], state[..., 3]
-    if n >= 1024:
+    if n >= BIQUAD_FILE_SOLVE:
         # Long signals: chunked Toeplitz solve.  Streaming blocks keep the
         # scan (the matmul form loses ~12 dB under per-block coefficient
         # glides at high Q — the reference's biquad_block note).

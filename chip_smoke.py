@@ -20,7 +20,9 @@ Drives the port's main path (aefs_tpu_torch) end to end on the card:
    2 x 892,800 (the demo file in one call);
 6. K4 (the comb bank with every chunk's y and damped) through its entry
    ``ringbuf.comb_bank_file_chunks`` at the flagship reverb's lags over the
-   demo's length, against its plain version;
+   demo's length, against its plain version; K5 (the biquad's block step)
+   against its plain step, bit for bit: seven types over a 40-block
+   cutoff glide and 64 pool slots, timed at 2 x 256 and at 16 slots;
 7. file mode: ``process_offline`` of the flagship chain, the "Rain Delay"
    preset, the five modulation presets ("Lush Chorus", "Jet Flanger",
    "Psychedelic Sweep", "Funky Talk", "8-Bit Arcade") and the seven
@@ -172,6 +174,7 @@ from aefs_tpu_torch.models.reverb import Reverb
 from aefs_tpu_torch.models.spectral import SpectralFilter, db_to_lin
 from aefs_tpu_torch.ops import kernels
 from aefs_tpu_torch.ops.fftops import frame_signal
+from aefs_tpu_torch.ops.kernels.biquad import biquad_step, biquad_step_plain
 from aefs_tpu_torch.ops.kernels.comb import (
     comb_chunks, comb_chunks_plain, comb_sums, comb_sums_plain)
 from aefs_tpu_torch.ops.kernels.resample import (
@@ -203,6 +206,7 @@ SPEC_TOL, CHROMA_TOL = 0.01 + 1e-5, 1e-4 + 1e-7
 WORK = ROOT / "build" / "chip_smoke"  # scratch files of the CLI phases (gitignored)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+F64_FLOPS = 34e12  # H100 SXM float64 outside the tensor cores
 # float32 operations per output sample (transcendentals count one each).
 # K1 at two channels: the base-4096 phase ramp 75, two distances 2, two
 # Hermite reads 40, two Hann gains 8, wet 3, mono 2, blend 6; plus ~700
@@ -221,11 +225,12 @@ LAST_SLICE_PRESETS = ("Clean Noise Removal", "Crunch", "Concert Hall (Convolutio
                       "Glue Bus", "Master Bus", "Broadcast Voice", "Multiband Master")
 # Every wrapper's launch counter, by the name the kernels' record uses.
 COUNTERS = {"octaver_step": octaver_step, "comb_sums": comb_sums,
-            "chorus_step": chorus_step, "comb_chunks": comb_chunks}
+            "chorus_step": chorus_step, "comb_chunks": comb_chunks, "biquad_step": biquad_step}
 LAUNCHES = {k: 0 for k in COUNTERS}  # summed over the paths of phases 6-13
 # The step kernels' device symbols: a graph replay's trace is held to the
 # launches its capture recorded, which every replay credits (check_replay).
-STEP_KERNELS = {"octaver_step": "octaver_step_kernel", "chorus_step": "chorus_step_kernel"}
+STEP_KERNELS = {"octaver_step": "octaver_step_kernel", "chorus_step": "chorus_step_kernel",
+                "biquad_step": "biquad_step_kernel"}
 GRAPH_CHECKS = {}  # graph path -> {"recorded": {...}, "traced": {...}, "kernels": [n, ...], ...}
 TRACE_REPLAYS = 3  # traced replays of a graph path in one profiler session (check_replay)
 TRACE_SESSIONS = 5  # profiler sessions tried while a trace holds no device record
@@ -270,10 +275,11 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, flops_per_s=F32_FLOPS):
     """The least time the card could take: the larger of bytes over the
-    memory rate and float32 operations over the peak rate, in ms."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    memory rate and operations over the peak rate (float32 unless given),
+    in ms."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / flops_per_s
     return {"bound_ms": 1000.0 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": n_bytes, "flops": flops}
@@ -573,6 +579,67 @@ def check_k3(dev, n_file):
         phase("k3_chorus_step", shape=[2, n], hist=CHORUS_HIST, **res[n],
               bytes=bnd["bytes"], flops=bnd["flops"])
     return res[BLOCK]
+
+
+def biquad_run(step, dev, n, params, seed):
+    """Blocks of noise (two channels) through a biquad step from a noise
+    state, one params dict per block (slots when the params have them)."""
+    rng = np.random.default_rng(seed)
+    lead = tuple(params[0]["cutoff_hz"].shape)
+    st, ys = {"df1": noise(rng, lead + (2, 4), dev)}, []
+    for p in params:
+        st, y = step(st, p, noise(rng, lead + (2, n), dev), FS)
+        ys.append(y)
+    return ys, st
+
+
+def biquad_params(dev, ftypes, cutoffs, q=0.707, gain_db=6.0):
+    """One params dict per block: ``ftypes`` per slot, ``cutoffs`` per block."""
+    t = torch.tensor(ftypes, dtype=torch.float32, device=dev)
+    full = lambda v: torch.full_like(t, v)  # noqa: E731
+    return [{"filter_type": t, "cutoff_hz": full(f), "q": full(q), "gain_db": full(gain_db)}
+            for f in cutoffs]
+
+
+def check_k5(dev):
+    """K5 against its plain step, bit for bit: the seven filter types as
+    seven slots over 40 blocks of a 20 Hz -> 20 kHz cutoff glide at q 10,
+    and 64 slots at the 150 Hz high-pass; times at 2 x 256 (one stream, a
+    low-pass as the flagship's) and at 16 slots."""
+    glide = [20.0 * 1000.0 ** (b / 39) for b in range(40)]
+    runs = (("glide-7-types-q10", biquad_params(dev, list(range(7)), glide, q=10.0)),
+            ("pool-64-hp150", biquad_params(dev, [1] * 64, [150.0] * 8)))
+    worst = 0.0
+    for i, (name, params) in enumerate(runs):
+        got = biquad_run(biquad_step, dev, BLOCK, params, 30 + i)
+        ref = biquad_run(biquad_step_plain, dev, BLOCK, params, 30 + i)
+        torch.cuda.synchronize()
+        same, err = compare_runs(got, ref)
+        phase("k5_biquad_step_run", run=name, blocks=len(params), bitwise=same,
+              max_abs_err=err)
+        if not same:
+            raise AssertionError(f"K5 {name}: not bitwise equal to the plain step (max abs {err})")
+        worst = max(worst, err)
+    res = {}
+    for slots in (None, 16):
+        rng = np.random.default_rng(5)
+        lead = (slots,) if slots else ()
+        p = {k: torch.full(lead, v, device=dev) for k, v in
+             (("filter_type", 0.0), ("cutoff_hz", 4000.0), ("q", 0.707), ("gain_db", 0.0))}
+        st = {"df1": noise(rng, lead + (2, 4), dev)}
+        x = noise(rng, lead + (2, BLOCK), dev)
+        ms = cuda_ms(lambda: biquad_step(st, p, x, FS), 2000)
+        plain_ms = cuda_ms(lambda: biquad_step_plain(st, p, x, FS), 200)
+        dev_ms = device_ms(lambda: biquad_step(st, p, x, FS), ("biquad_step_kernel",), 200)
+        # Reads x, the state and 4 params per slot, writes y and the state;
+        # float64: v (5), 20 per level of the 8, y (4) per sample.
+        rows = x.numel() // BLOCK
+        bnd = bound(4 * (2 * x.numel() + 2 * 4 * rows + 4 * (slots or 1)),
+                    x.numel() * (5 + 20 * 8 + 4), F64_FLOPS)
+        res[slots or 1] = record(worst, ms, dev_ms, plain_ms, bnd, bitwise=True)
+        phase("k5_biquad_step", shape=list(x.shape), **res[slots or 1],
+              bytes=bnd["bytes"], flops=bnd["flops"])
+    return {**res[1], "pool_16": res[16]}
 
 
 def check_k4(dev, demo):
@@ -2540,6 +2607,7 @@ def main(argv=None):
     k2["file_grid"] = check_k2_file_grid(dev, demo)
     k3 = check_k3(dev, demo.shape[0])
     k4 = check_k4(dev, demo)  # K4's own path: its entry, from a zeroed counter
+    k5 = check_k5(dev)
 
     # The main paths, each from zeroed launch counters.
     file_mode("flagship", FLAGSHIP, demo, fs, need=("comb_sums",))
@@ -2626,6 +2694,9 @@ def main(argv=None):
          **k3, "slot_grid": grids["chorus"]},
         {"name": "comb_chunks", "route": "cuda", "source": "aefs_tpu_torch/csrc/comb.cu",
          "replaces": "aefs_tpu/ops/pallas/comb.py:62", "launches": LAUNCHES["comb_chunks"], **k4},
+        {"name": "biquad_step", "route": "cuda", "source": "aefs_tpu_torch/csrc/biquad.cu",
+         "replaces": None, "launches": LAUNCHES["biquad_step"],
+         "graph_paths_traced": graph_traced("biquad_step"), **k5},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                               "count": torch.cuda.device_count()}}), flush=True)

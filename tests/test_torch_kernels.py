@@ -779,11 +779,184 @@ def test_step_kernels_file_length_slots_bitwise(dev, kind):
         assert all(torch.equal(got[0][k][f], one_st[k]) for k in one_st)
 
 
+# --- K5: the biquad's streaming block step ---------------------------------
+
+BIQUAD_CUTOFFS = (20.0, 150.0, 1000.0, 4000.0, 20000.0)
+BIQUAD_QS = (0.1, 0.707, 10.0)
+BIQUAD_GAINS = (-24.0, 0.0, 24.0)
+
+
+def _biquad_grid(dev, ftype):
+    """One slot per (cutoff, q, gain) of the grid above, all of ``ftype``."""
+    grid = np.array([(f, q, g) for f in BIQUAD_CUTOFFS for q in BIQUAD_QS
+                     for g in BIQUAD_GAINS], np.float32)
+    cols = {"cutoff_hz": grid[:, 0], "q": grid[:, 1], "gain_db": grid[:, 2],
+            "filter_type": np.full(len(grid), ftype, np.float32)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+
+
+def _biquad_run(step, dev, n, params, seed, fs=48000):
+    """Blocks of noise (two channels) through a biquad step from a noise
+    state, one params dict per block (a slot axis when the params have
+    one).  Returns (outputs, final state, kernel launches meanwhile)."""
+    from aefs_tpu_torch.ops.kernels.biquad import biquad_step
+
+    rng = np.random.default_rng(seed)
+    lead = tuple(params[0]["cutoff_hz"].shape)
+    st = {"df1": _noise(rng, lead + (2, 4), dev)}
+    ys, before = [], biquad_step.launches
+    for p in params:
+        st, y = step(st, p, _noise(rng, lead + (2, n), dev), fs)
+        ys.append(y)
+    torch.cuda.synchronize()
+    return ys, st, biquad_step.launches - before
+
+
+@pytest.mark.parametrize("n", [64, 256, 512, 1023])
+@pytest.mark.parametrize("fs", [48000, 16000])
+@pytest.mark.parametrize("ftype", range(7))
+def test_biquad_step_kernel_matches_plain(dev, ftype, fs, n):
+    """K5 against its plain step on the card, bit for bit (outputs and
+    state), over two blocks: every filter type, at cutoffs 20 Hz to 20 kHz
+    (20 kHz meets the 0.45 fs clamp at both rates), q 0.1 to 10 and gains
+    -24 to +24 dB, one slot each: 45 slots in one launch.  From 512
+    samples the planes need more than the default 48 KB of shared memory."""
+    from aefs_tpu_torch.ops.kernels.biquad import biquad_step, biquad_step_plain
+
+    params = [_biquad_grid(dev, ftype)] * 2
+    got = _biquad_run(biquad_step, dev, n, params, seed=ftype, fs=fs)
+    ref = _biquad_run(biquad_step_plain, dev, n, params, seed=ftype, fs=fs)
+    assert got[2] == 2 and ref[2] == 0
+    _assert_runs_bitwise(got, ref)
+
+
+@pytest.mark.parametrize("slots", [1, 16, 64])
+def test_biquad_step_slot_grid_bitwise(dev, slots):
+    """K5 with a slot grid over 8 blocks, each slot with its own type,
+    cutoff, q and gain: one launch a block for all slots, bit-equal to the
+    plain step and to S = 1 launches on each slot's inputs."""
+    from aefs_tpu_torch.ops.kernels.biquad import biquad_step, biquad_step_plain
+
+    rng = np.random.default_rng(slots)
+    p = {"filter_type": np.arange(slots) % 7,
+         "cutoff_hz": np.exp(rng.uniform(np.log(20.0), np.log(20000.0), slots)),
+         "q": rng.uniform(0.1, 10.0, slots), "gain_db": rng.uniform(-24.0, 24.0, slots)}
+    params = [{k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in p.items()}] * 8
+    got = _biquad_run(biquad_step, dev, 256, params, seed=slots)
+    assert got[2] == 8
+    _assert_runs_bitwise(got, _biquad_run(biquad_step_plain, dev, 256, params, seed=slots))
+    single = _per_slot(biquad_step, 48000)
+    ref = _biquad_run(lambda st, p, x, fs: single(st, p, x), dev, 256, params, seed=slots)
+    assert ref[2] == 8 * slots
+    _assert_runs_bitwise(got, ref)
+
+
+@pytest.mark.parametrize("ftype", range(7))
+def test_biquad_step_glide_bitwise(dev, ftype):
+    """40 consecutive blocks carrying state while the cutoff glides from 20
+    Hz to 20 kHz at q 10 (near-unit poles at the bottom), +12 dB: every
+    block's output and the final state bit-equal, one launch a block."""
+    from aefs_tpu_torch.ops.kernels.biquad import biquad_step, biquad_step_plain
+
+    params = [{"filter_type": torch.tensor(float(ftype), device=dev),
+               "cutoff_hz": torch.tensor(20.0 * 1000.0 ** (b / 39), device=dev),
+               "q": torch.tensor(10.0, device=dev), "gain_db": torch.tensor(12.0, device=dev)}
+              for b in range(40)]
+    got = _biquad_run(biquad_step, dev, 256, params, seed=20 + ftype)
+    ref = _biquad_run(biquad_step_plain, dev, 256, params, seed=20 + ftype)
+    assert got[2] == 40 and ref[2] == 0
+    _assert_runs_bitwise(got, ref)
+
+
+def test_biquad_step_rejects_bad_operands(dev):
+    """Operands of the wrong dtype, card or shape are refused before any
+    launch."""
+    from aefs_tpu_torch.ops.kernels.biquad import biquad_step
+
+    st = {"df1": torch.zeros((4, 2, 4), device=dev)}
+    p = {k: torch.full((4,), v, device=dev) for k, v in
+         (("filter_type", 0.0), ("cutoff_hz", 1000.0), ("q", 0.707), ("gain_db", 0.0))}
+    x = torch.zeros((4, 2, 256), device=dev)
+    bad = [
+        ({"df1": st["df1"].double()}, p, x),
+        ({"df1": st["df1"].cpu()}, p, x),
+        ({"df1": st["df1"][:3]}, p, x),
+        ({"df1": st["df1"].transpose(0, 1).contiguous().transpose(0, 1)}, p, x),
+        (st, {**p, "q": p["q"].double()}, x),
+        (st, {**p, "cutoff_hz": p["cutoff_hz"].cpu()}, x),
+        (st, {**p, "gain_db": torch.zeros(8, device=dev)[::2]}, x),  # strided
+        (st, {**p, "filter_type": torch.zeros(5, device=dev)}, x),
+        (st, p, x.double()),
+        (st, p, x.cpu()),
+        (st, p, torch.zeros((4, 2, 1024), device=dev)),
+    ]
+    before = biquad_step.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            biquad_step(*args, 48000)
+    assert biquad_step.launches == before
+
+
+@pytest.mark.parametrize("name,biquads", [("Multiband Master", 11), ("flagship", 1)])
+def test_step_graph_replay_credits_biquad_step(dev, name, biquads):
+    """One replay of the chain's captured step credits K5 once per biquad
+    of the chain: the capture recorded that many launches."""
+    from aefs_tpu_torch.core.chain import build_chain
+    from aefs_tpu_torch.core.config import DEFAULT_PRESETS
+    from aefs_tpu_torch.engine.flagship import FLAGSHIP
+    from aefs_tpu_torch.ops.kernels.biquad import biquad_step
+
+    cfg = FLAGSHIP if name == "flagship" else DEFAULT_PRESETS[name]
+    chain, state, tmap = build_chain(cfg, 48000, 256, channels_in=1, device=dev)
+    chain.warmup(state, chain.targets(tmap))
+    runner = chain.packed_step()
+    assert runner.captured[2].get(biquad_step) == biquads
+    before = biquad_step.launches
+    runner.run()
+    torch.cuda.synchronize()
+    assert biquad_step.launches - before == biquads
+    chain.release()
+
+
+def test_file_render_credits_no_biquad_step(dev):
+    """A file-mode render (18,000 samples, one call over the whole signal)
+    takes the chunked Toeplitz solve and never launches K5."""
+    from aefs_tpu_torch.core.chain import build_chain
+    from aefs_tpu_torch.core.config import DEFAULT_PRESETS
+    from aefs_tpu_torch.core.fileopts import file_static_overrides
+    from aefs_tpu_torch.engine.flagship import FLAGSHIP
+    from aefs_tpu_torch.ops.kernels.biquad import biquad_step
+
+    x = _noise_plus_tones(18000)[:, :1]
+    for cfg in (DEFAULT_PRESETS["Multiband Master"], FLAGSHIP):
+        chain, state, tmap = build_chain(cfg, 48000, 256, channels_in=1, device=dev,
+                                         static_overrides=file_static_overrides(cfg))
+        before = biquad_step.launches
+        _, y = chain.process_array(state, chain.targets(tmap), x, fast=True)
+        assert biquad_step.launches == before and np.all(np.isfinite(y))
+
+
 @pytest.fixture(scope="module")
 def dev1(dev):
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards: launches on cuda:1 while cuda:0 is current")
     return torch.device("cuda", 1)
+
+
+def test_biquad_step_launches_on_the_operands_card(dev1):
+    """K5 on cuda:1 with cuda:0 current: the plain step's results (run with
+    cuda:1 current) bit for bit, one launch a block, cuda:0 left current."""
+    from aefs_tpu_torch.ops.kernels.biquad import biquad_step, biquad_step_plain
+
+    params = [_biquad_grid(dev1, 4)] * 3
+    with torch.cuda.device(dev1):
+        ref = _biquad_run(biquad_step_plain, dev1, 256, params, 6)
+    with torch.cuda.device(0):
+        got = _biquad_run(biquad_step, dev1, 256, params, 6)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev1)
+    assert got[2] == 3 and ref[2] == 0
+    _assert_runs_bitwise(got, ref)
 
 
 @pytest.mark.parametrize("kind", ["octaver_step", "chorus_step", "comb_sums"])
