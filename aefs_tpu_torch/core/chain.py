@@ -44,6 +44,7 @@ import torch
 
 from aefs_tpu_torch.core.params import smooth_all
 from aefs_tpu_torch.models.base import tree_map
+from aefs_tpu_torch.utils.metrics import TRACER
 from aefs_tpu_torch.utils.platform import same_device
 
 
@@ -210,7 +211,11 @@ class Chain:
         new_fx, new_params = [], []
         for i, (eid, model) in enumerate(self.effects):
             pcur = smooth_all(model.PARAMS, state["params"][i], targets[i], self.fs)
-            st, buf = getattr(model, method)(state["fx"][i], pcur, buf)
+            if method == "process_file":  # rid: the effect's position
+                with TRACER.span("chain.file_effect", i):
+                    st, buf = model.process_file(state["fx"][i], pcur, buf)
+            else:
+                st, buf = model.process(state["fx"][i], pcur, buf)
             new_fx.append(st)
             new_params.append(pcur)
         return {"fx": tuple(new_fx), "params": tuple(new_params)}, buf
@@ -225,7 +230,8 @@ class Chain:
         fast path: one parameter-smoothing step, then every effect
         transforms the entire signal in closed form.  Needs fresh state.
         x (ci, N), or (F, ci, N) for F files with ``batch_state``'s fx and
-        0-dim params (``render_batch``)."""
+        0-dim params (``render_batch``).  Each effect's pass is a
+        ``chain.file_effect`` span of the tracer."""
         return self._process(state, targets, x, "process_file")
 
     # -- the compiled entry points ----------------------------------------

@@ -6,8 +6,9 @@ turns nothing on; an upload through the backend's
 ``handler`` gives each front span once under one request id; the mic
 path's ``engine.block`` is ``BlockTimer``'s own reading; the pool's
 batcher counts its blocks, drop-late and steps, and ``last_step_ms`` is
-its ``pool.step`` span; ``get_stats`` / ``get_pool_stats`` carry
-``"trace"`` only while the tracer is enabled."""
+its ``pool.step`` span; a whole-file render spans each effect in turn,
+and a streaming block does not; ``get_stats`` /
+``get_pool_stats`` carry ``"trace"`` only while the tracer is enabled."""
 
 import asyncio
 import base64
@@ -22,8 +23,10 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from aefs_tpu_torch.core.chain import build_chain
+from aefs_tpu_torch.core.config import DEFAULT_PRESETS
 from aefs_tpu_torch.core.packing import kernel_nodes
-from aefs_tpu_torch.engine.engine import AudioEngine
+from aefs_tpu_torch.engine.engine import AudioEngine, process_offline
 from aefs_tpu_torch.engine.wavio import encode_wav_int16
 from aefs_tpu_torch.server import backend
 from aefs_tpu_torch.server.pool import PoolServer, SessionPool, _Batcher
@@ -284,6 +287,39 @@ def test_engine_block_is_the_block_timers_reading(pipelined):
     assert ex["counters"].get("engine.silent_blocks", 0) == (1 if pipelined else 0)
     assert "chain.graph_kernels" not in ex["counters"]  # no graph on the CPU
     eng.close()
+
+
+# -- the whole-file pass ------------------------------------------------------------
+
+# "Jet Flanger" after a filter: two effects, the flanger second.
+FILE_CFG = CFG + DEFAULT_PRESETS["Jet Flanger"]
+
+
+def _render_file(frames=5000):
+    x = 0.1 * np.random.default_rng(4).standard_normal((frames, 2)).astype(np.float32)
+    process_offline(FILE_CFG, x, FS, device="cpu")
+
+
+def test_a_file_render_spans_each_effect_in_turn():
+    _render_file()
+    ex = TRACER.export()
+    spans = ex["spans"]["chain.file_effect"]
+    assert [r for r, _s, _e in spans] == [0, 1]
+    (_r0, s0, e0), (_r1, s1, e1) = spans
+    assert s0 <= e0 <= s1 <= e1
+    assert ex["counters"] == {}
+
+
+def test_a_file_render_off_records_nothing():
+    TRACER.disable()
+    _render_file()
+    assert TRACER.export() == {"spans": {}, "counters": {}, "dropped": {}}
+
+
+def test_a_streaming_block_keeps_no_file_span():
+    chain, state, tmap = build_chain(FILE_CFG, FS, 256, device="cpu")
+    chain.process_block(state, chain.targets(tmap), torch.zeros(1, 256))
+    assert TRACER.export() == {"spans": {}, "counters": {}, "dropped": {}}
 
 
 # -- the pool's batcher ------------------------------------------------------------
