@@ -11,14 +11,17 @@ The tap reaches at least D_MIN - 2 = 22 samples back, so over a 256-sample
 chunk the in-chunk part of the read operator is nilpotent and v = x +
 fb*T(v) is solved exactly by 12 fixed-point sweeps.  ``process`` runs any
 block as the same sequence of 256-sample chunks, so 256-sample streaming
-and 4096-sample blocks agree bit for bit.  ``process_file`` takes the
-reference's batched form: all chunk phases from the parallel double-single
-ramp, the in-chunk operator squared twice, four matvecs per chunk.
-
-The tap operator is the reference's dense form (cubic one-hot weights,
+and 4096-sample blocks agree bit for bit.  Its tap operator is the
+reference's dense form (cubic one-hot weights,
 ``ops/ringbuf.py:cubic_onehot_matrix``) and its products are plain fp32
 matmuls, as the reference leaves them to XLA outside any kernel; keeping
 the same weights and sums keeps the port within float rounding of it.
+
+``process_file`` takes every chunk's phases from the parallel
+double-single ramp and solves the recurrence itself, 22 or more samples
+at a time, in one call of ``ops/kernels/flanger.py:flanger_file`` (kernel
+K6 on the card): the same mathematics as the reference's squared dense
+solve, with fewer roundings.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from aefs_tpu_torch.models.base import EffectModel, lead
 from aefs_tpu_torch.models.lfo import (
     TWO_PI, f64, fs_tensor, lfo_advance, lfo_ramp, spread_channels)
 from aefs_tpu_torch.ops.dsphase import _two_sum
-from aefs_tpu_torch.ops.ringbuf import cubic_onehot_matrix, cubic_tap_weights, onehot_matrix
+from aefs_tpu_torch.ops.kernels.flanger import flanger_file
+from aefs_tpu_torch.ops.ringbuf import cubic_onehot_matrix, cubic_tap_weights
 from aefs_tpu_torch.ops.scan import _matmul
 
 MAX_BASE_MS = 10.0
@@ -39,7 +43,6 @@ MAX_DEPTH_MS = 5.0
 D_MIN = 24.0     # samples; bounds the nilpotency degree
 _CHUNK = 256
 _SWEEPS = 12     # ceil(_CHUNK / (D_MIN - 2))
-_FILE_BATCH = 8  # chunks whose operators are built and squared together
 
 
 def _mv(mat, z):
@@ -137,35 +140,29 @@ class Flanger(EffectModel):
         return self._finish(state, dph, pad, n, torch.cat(ys, -1), torch.cat(vs, -1),
                             hist, hi, lo)
 
-    def _finish(self, state, dph, pad, n, ys, vs, hist_f, hi_f, lo_f):
-        """Unpad (..., C, total) outputs and, when padded, rebuild the carry
-        from the unpadded delay-line signal and sample count."""
-        if pad:
+    def _finish(self, state, dph, pad, n, ys, vs, hist_f=None, hi_f=None, lo_f=None):
+        """Unpad (..., C, total) outputs and, when padded or not given,
+        build the carry from the unpadded delay-line signal and sample
+        count."""
+        if pad or hist_f is None:
             hist_f = torch.cat([state["hist"], vs[..., :n]], -1)[..., -self.hist_len:]
             hi_f, lo_f = lfo_advance(state["ph_hi"], state["ph_lo"], dph, n)
         return {"hist": hist_f, "ph_hi": hi_f, "ph_lo": lo_f}, ys[..., :n]
 
-    def process_file(self, state, p, x):
-        """Whole-file path: per batch of 8 chunks, one one-hot compare builds
-        every tap position; the in-chunk quarter C is squared (C2, C4) so the
-        exact solve (I - fb*C)^-1 = (I + fb C)(I + fb^2 C2)(I + fb^4 C4 +
-        fb^8 C4^2), valid since C^12 = 0, takes 4 dependent matvecs per
-        chunk instead of 12.  x: (C, N), or (F, C, N) for F files with
-        (F, ...) state: the chunk loop then runs once for all of them."""
-        files = x.shape[:-2]
+    def file_operands(self, state, p, x):
+        """``flanger_file``'s signal operands for a whole file: x padded to
+        whole 256-sample chunks, every sample's delay ceiling ca (int32)
+        and its four cubic weights w (4, ..., C, total), from the chunked
+        double-single ramp (the blockwise step's phases).  Returns (xp, ca,
+        w, pad).  x: (C, N), or (F, C, N) with (F, ...) state."""
         c, n = x.shape[-2:]
         dev = x.device
         fs = fs_tensor(self.fs, dev)
         dph = p["rate_hz"] / fs
-        fb = p["feedback"]
-        H, K, SB = self.hist_len, _CHUNK, _FILE_BATCH
-
-        step_len = K * SB
-        steps = -(-n // step_len)
-        total = steps * step_len
-        pad = total - n
+        K = _CHUNK
+        m = -(-n // K)
+        pad = m * K - n
         xp = F.pad(x, (0, pad)) if pad else x
-        m = total // K
 
         # Every chunk's start phase from the parallel ramp; in-chunk phase
         # is the same hi + (lo + idx*dph) as the blockwise step.
@@ -174,46 +171,18 @@ class Flanger(EffectModel):
         idx = torch.arange(K, dtype=torch.float32, device=dev)
         ph = chi[..., None] + (clo[..., None] + idx * dph)  # (..., m, K)
         chan = torch.arange(c, dtype=torch.float32, device=dev)
-        ph_c = ph[..., None, :] + p["spread"] * chan[:, None]
-        d = self._delay(p, ph_c, fs)  # (..., m, C, K)
-        ca = torch.ceil(d).to(torch.int32)
-        fr = torch.ceil(d) - d
-        base = H + torch.arange(K, dtype=torch.int32, device=dev)
-        t0 = base - ca - 1  # (..., m, C, K) first-tap ext column
+        ph_c = ph[..., None, :, :] + p["spread"] * chan[:, None, None]  # (..., C, m, K)
+        d = self._delay(p, ph_c, fs).flatten(-2)  # (..., C, m*K)
+        ca = torch.ceil(d)
+        w = torch.stack(cubic_tap_weights(ca - d))
+        return xp.contiguous(), ca.to(torch.int32), w, pad
 
-        xs = xp.reshape(*files, c, steps, SB, K).movedim(-4, -2)  # (..., steps, SB, C, K)
-        fb2 = fb * fb
-        fb4 = fb2 * fb2
-        hist = state["hist"]
-        ys, vs = [], []
-        for st in range(steps):
-            sl = slice(st * SB, (st + 1) * SB)
-            onehot = onehot_matrix(t0[..., sl, :, :], H + K)  # (..., SB, C, K, H+K)
-            w = cubic_tap_weights(fr[..., sl, :, :])
-            # In-chunk quarter: tap k at ext column t0+k == H+j  <=>  one-hot
-            # column H+j-k.
-            cm = sum(w[k][..., None] * onehot[..., H - k:H - k + K] for k in range(4))
-            c2 = _matmul(cm, cm)
-            c4 = _matmul(c2, c2)
-            oh = onehot[..., :H]
-            for s in range(SB):
-                # History tap: four shifted history reads against the same
-                # one-hot (reads crossing into the chunk hit the pad's zeros
-                # and are taken by cm).
-                hist_pad = F.pad(hist, (0, 3))
-                hstack = torch.stack([hist_pad[..., k:k + H] for k in range(4)], -2)
-                th4 = _matmul(oh[..., s, :, :, :], hstack.transpose(-1, -2))  # (..., C, K, 4)
-                th = sum(w[k][..., s, :, :] * th4[..., k] for k in range(4))
-                xc = xs[..., st, s, :, :]
-                cm_s, c2_s, c4_s = (t[..., s, :, :, :] for t in (cm, c2, c4))
-                b = xc + fb * th
-                u = b + fb4 * _mv(c4_s, b + fb4 * _mv(c4_s, b))
-                u = u + fb2 * _mv(c2_s, u)
-                v = u + fb * _mv(cm_s, u)
-                tap = th + _mv(cm_s, v)
-                ys.append((1.0 - p["mix"]) * xc + p["mix"] * tap)
-                vs.append(v)
-                hist = torch.cat([hist, v], -1)[..., -H:]
-        hi_f, lo_f = lfo_advance(state["ph_hi"], state["ph_lo"], dph, total)
-        return self._finish(state, dph, pad, n, torch.cat(ys, -1), torch.cat(vs, -1),
-                            hist, hi_f, lo_f)
+    def process_file(self, state, p, x):
+        """Whole-file path: ``file_operands``, then the line recurrence in
+        one call of ``flanger_file`` (kernel K6 on the card) for every file
+        and channel.  x: (C, N), or (F, C, N) for F files with (F, ...)
+        state."""
+        dph = p["rate_hz"] / fs_tensor(self.fs, x.device)
+        xp, ca, w, pad = self.file_operands(state, p, x)
+        ys, vs = flanger_file(xp, ca, w, p["feedback"], p["mix"], state["hist"].contiguous())
+        return self._finish(state, dph, pad, x.shape[-1], ys, vs)

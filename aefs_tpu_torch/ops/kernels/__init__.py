@@ -8,8 +8,9 @@ ctypes.  No PyTorch headers are compiled, so the build takes seconds.
 
 Each kernel module (``resample.py``: K1, K3, the octaver's and the
 chorus's block steps; ``comb.py``: K2, K4; ``biquad.py``: K5, the biquad's
-streaming block step) holds the wrappers, their plain versions and one
-launch counter per wrapper.  A wrapper takes the plain version only for
+streaming block step; ``flanger.py``: K6, the flanger's whole-file solve)
+holds the wrappers, their plain versions and one launch counter per
+wrapper.  A wrapper takes the plain version only for
 CPU tensors; on CUDA tensors it launches the kernel or raises.  A sharded step launches on every card from one thread: each
 wrapper makes its operands' card current around the call for PyTorch, and
 passes its index to the C entry, which makes it current for the library's
@@ -108,6 +109,8 @@ def library():
             lib.aefs_comb_chunks.restype = i
             lib.aefs_biquad_step.argtypes = [p, ll, ll, i, i, i, p, i] + [p] * 5 + [i, p]
             lib.aefs_biquad_step.restype = i
+            lib.aefs_flanger_file.argtypes = [p] * 8 + [i, i, i, i, p]
+            lib.aefs_flanger_file.restype = i
             _lib = lib
     return _lib
 

@@ -291,18 +291,13 @@ def cubic_hermite(frac, y0, y1, y2, y3):
 def cubic_tap_weights(fr):
     """4-point cubic-Hermite (Catmull-Rom) tap weights at fraction ``fr``:
     the basis polynomials ``cubic_hermite`` evaluates, for callers that
-    hold the weights and the tap positions apart (the flanger's operator)."""
+    hold the weights and the tap positions apart (the flanger's streaming
+    operator and its file solve)."""
     w0 = fr * (-0.5 + fr * (1.0 - 0.5 * fr))
     w1 = 1.0 + fr * fr * (-2.5 + 1.5 * fr)
     w2 = fr * (0.5 + fr * (2.0 - 1.5 * fr))
     w3 = fr * fr * (0.5 * fr - 0.5)
     return w0, w1, w2, w3
-
-
-def onehot_matrix(t0, length: int):
-    """(..., N, length) float32 one-hot rows: row i is e_{t0[i]}."""
-    col = torch.arange(length, dtype=t0.dtype, device=t0.device)
-    return (col == t0[..., None]).to(torch.float32)
 
 
 def cubic_onehot_matrix(t0, fr, length: int):

@@ -22,7 +22,11 @@ Drives the port's main path (aefs_tpu_torch) end to end on the card:
    ``ringbuf.comb_bank_file_chunks`` at the flagship reverb's lags over the
    demo's length, against its plain version; K5 (the biquad's block step)
    against its plain step, bit for bit: seven types over a 40-block
-   cutoff glide and 64 pool slots, timed at 2 x 256 and at 16 slots;
+   cutoff glide and 64 pool slots, timed at 2 x 256 and at 16 slots; K6
+   (the flanger's whole-file solve) against its plain version, bit for
+   bit, on "Jet Flanger"'s and a negative-feedback flanger's operands at
+   the demo's length, timed there beside its bound and its chain of
+   stretches;
 7. file mode: ``process_offline`` of the flagship chain, the "Rain Delay"
    preset, the five modulation presets ("Lush Chorus", "Jet Flanger",
    "Psychedelic Sweep", "Funky Talk", "8-Bit Arcade") and the seven
@@ -169,6 +173,7 @@ from aefs_tpu_torch.core.config import DEFAULT_PRESETS
 from aefs_tpu_torch.engine.engine import AudioEngine, process_offline, render_batch
 from aefs_tpu_torch.engine.flagship import FLAGSHIP
 from aefs_tpu_torch.engine.wavio import decode_wav, encode_wav_int16, read_wav_file, write_wav_file
+from aefs_tpu_torch.models.flanger import Flanger
 from aefs_tpu_torch.models.octaver import Octaver
 from aefs_tpu_torch.models.reverb import Reverb
 from aefs_tpu_torch.models.spectral import SpectralFilter, db_to_lin
@@ -177,6 +182,7 @@ from aefs_tpu_torch.ops.fftops import frame_signal
 from aefs_tpu_torch.ops.kernels.biquad import biquad_step, biquad_step_plain
 from aefs_tpu_torch.ops.kernels.comb import (
     comb_chunks, comb_chunks_plain, comb_sums, comb_sums_plain)
+from aefs_tpu_torch.ops.kernels.flanger import flanger_file, flanger_file_plain
 from aefs_tpu_torch.ops.kernels.resample import (
     chorus_step, chorus_step_plain, octaver_step, octaver_step_plain)
 from aefs_tpu_torch.ops.ringbuf import comb_bank_file_chunks, comb_chunk_size
@@ -225,7 +231,8 @@ LAST_SLICE_PRESETS = ("Clean Noise Removal", "Crunch", "Concert Hall (Convolutio
                       "Glue Bus", "Master Bus", "Broadcast Voice", "Multiband Master")
 # Every wrapper's launch counter, by the name the kernels' record uses.
 COUNTERS = {"octaver_step": octaver_step, "comb_sums": comb_sums,
-            "chorus_step": chorus_step, "comb_chunks": comb_chunks, "biquad_step": biquad_step}
+            "chorus_step": chorus_step, "comb_chunks": comb_chunks, "biquad_step": biquad_step,
+            "flanger_file": flanger_file}
 LAUNCHES = {k: 0 for k in COUNTERS}  # summed over the paths of phases 6-13
 # The step kernels' device symbols: a graph replay's trace is held to the
 # launches its capture recorded, which every replay credits (check_replay).
@@ -642,6 +649,68 @@ def check_k5(dev):
     return {**res[1], "pool_16": res[16]}
 
 
+def flanger_operands(dev, params, demo):
+    """``flanger_file``'s operands for the demo (2 channels) through a
+    flanger with ``params``, from a fresh state, as ``process_file`` makes
+    them."""
+    mdl = Flanger(FS, BLOCK, device=dev)
+    p = {k: torch.tensor(float(v), device=dev) for k, v in params.items()}
+    st = mdl.init_state()
+    x = torch.from_numpy(np.ascontiguousarray(demo.T)).to(dev)
+    xp, ca, w, _ = mdl.file_operands(st, p, x)
+    return xp, ca, w, p["feedback"], p["mix"], st["hist"]
+
+
+def flanger_stretches(ca):
+    """The kernel's dependent stretches on its longest row: per tile of 512
+    samples, whole stretches of min(32, least ca of the tile - 2)."""
+    n = ca.shape[-1]
+    tiles = torch.nn.functional.pad(ca.reshape(-1, n), (0, -n % 512), value=1 << 30)
+    tiles = tiles.reshape(tiles.shape[0], -1, 512)
+    span = (tiles.amin(-1) - 2).clamp(1, 32)
+    length = torch.full_like(span, 512)
+    length[:, -1] = n - 512 * (tiles.shape[1] - 1)
+    return int(((length + span - 1) // span).sum(-1).max())
+
+
+def check_k6(dev, demo):
+    """K6 against its plain version, bit for bit (y and v), on the
+    operands of "Jet Flanger" and of a negative-feedback flanger with a
+    channel spread at the demo's length (2 x 892,928 after the chunk
+    padding); timed on the first beside its bound and its chain of
+    dependent stretches."""
+    runs = {"jet": flanger_operands(dev, DEFAULT_PRESETS["Jet Flanger"][0]["params"], demo),
+            "negative-spread": flanger_operands(dev, {"rate_hz": 2.0, "depth_ms": 4.0,
+                                                      "base_ms": 1.0, "feedback": -0.7,
+                                                      "mix": 1.0, "spread": 0.25}, demo)}
+    worst, bitwise = 0.0, True
+    for name, ops in runs.items():
+        got = flanger_file(*ops)
+        want = flanger_file_plain(*ops)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want))
+        worst, bitwise = max(worst, err), bitwise and same
+        phase("k6_flanger_file_run", run=name, shape=list(ops[0].shape), bitwise=same,
+              max_abs_err=err)
+        if not same:
+            raise AssertionError(f"K6 {name}: not bitwise equal to the plain version "
+                                 f"(max abs {err})")
+    jet = runs["jet"]
+    x = jet[0]
+    ms = cuda_ms(lambda: flanger_file(*jet), 50)
+    dev_ms = device_ms(lambda: flanger_file(*jet), ("flanger_file_kernel",), 20)
+    plain_ms = cuda_ms(lambda: flanger_file_plain(*jet), 1)
+    # Reads x, ca and four weights, writes y and v: 32 bytes a sample; the
+    # tap's 4 products and 3 sums, v's 2, y's 3 (1 - mix once a row).
+    bnd = bound(32 * x.numel(), 12 * x.numel())
+    stretches = flanger_stretches(jet[1])
+    res = record(worst, ms, dev_ms, plain_ms, bnd, bitwise=bitwise, stretches_per_row=stretches,
+                 ns_per_stretch=None if dev_ms is None else 1e6 * dev_ms / stretches)
+    phase("k6_flanger_file", shape=list(x.shape), **res, bytes=bnd["bytes"], flops=bnd["flops"])
+    return res
+
+
 def check_k4(dev, demo):
     """K4 at the flagship reverb's 8 lags and its two sides over the demo
     (traced damping h = 0.25, the scan), through the entry
@@ -825,14 +894,15 @@ def render_batch_sweep(demo):
     zeroed counters after one cold call; every file within -120 dBFS of its
     own ``process_offline`` on the card, file 0 (the demo) within -90 dBFS
     of the CPU port's render (kept by ``file_mode``); K2 and K3 launched
-    once per batch.  A profiled call counts the device kernels and K2's
-    device time ("Jet Flanger", ~129k launches a batch, is not profiled)."""
+    once per batch, K6 ("Jet Flanger") too.  A profiled call counts the
+    device kernels and K2's device time."""
     rows = []
     for name, sizes in RENDER_SWEEP:
         cfg = FLAGSHIP if name == "flagship" else DEFAULT_PRESETS[name]
         types = {c["type"] for c in cfg}
         need = ({"comb_sums": 1} if "reverb" in types else {}) | (
-            {"chorus_step": 1} if "chorus" in types else {})
+            {"chorus_step": 1} if "chorus" in types else {}) | (
+            {"flanger_file": 1} if "flanger" in types else {})
         for files in sizes:
             batch = sweep_files(demo, files)
             render_batch(cfg, batch, FS, device="cuda")  # cold: allocator, plans
@@ -853,10 +923,8 @@ def render_batch_sweep(demo):
                 raise AssertionError(f"render_batch_sweep {name} F={files}: vs process_offline "
                                      f"{max(errs)} dBFS (bar {BATCH_DBFS_TOL}), vs CPU "
                                      f"{vs_cpu} (bar {DBFS_TOL})")
-            kernels = copies = busy = k2_ms = None
-            if name != "Jet Flanger":
-                kernels, copies, busy, k2_ms = profile_render(
-                    lambda: render_batch(cfg, batch, FS, device="cuda"))
+            kernels, copies, busy, k2_ms = profile_render(
+                lambda: render_batch(cfg, batch, FS, device="cuda"))
             audio_s = files * demo.shape[0] / FS
             row = {"chain": name, "files": files, "frames": demo.shape[0], "wall_s": wall,
                    "audio_s": audio_s, "realtime_x": audio_s / wall, "launches": counts,
@@ -2608,12 +2676,14 @@ def main(argv=None):
     k3 = check_k3(dev, demo.shape[0])
     k4 = check_k4(dev, demo)  # K4's own path: its entry, from a zeroed counter
     k5 = check_k5(dev)
+    k6 = check_k6(dev, demo)
 
     # The main paths, each from zeroed launch counters.
     file_mode("flagship", FLAGSHIP, demo, fs, need=("comb_sums",))
     file_mode("Rain Delay", DEFAULT_PRESETS["Rain Delay"], demo, fs, need=("comb_sums",))
     for preset in MODULATION_PRESETS:
-        need = ("chorus_step", "comb_sums") if preset == "Lush Chorus" else ()
+        need = {"Lush Chorus": ("chorus_step", "comb_sums"),
+                "Jet Flanger": ("flanger_file",)}.get(preset, ())
         file_mode(preset, DEFAULT_PRESETS[preset], demo, fs, need=need)
     for preset in LAST_SLICE_PRESETS:
         file_mode(preset, DEFAULT_PRESETS[preset], demo, fs)
@@ -2697,6 +2767,8 @@ def main(argv=None):
         {"name": "biquad_step", "route": "cuda", "source": "aefs_tpu_torch/csrc/biquad.cu",
          "replaces": None, "launches": LAUNCHES["biquad_step"],
          "graph_paths_traced": graph_traced("biquad_step"), **k5},
+        {"name": "flanger_file", "route": "cuda", "source": "aefs_tpu_torch/csrc/flanger.cu",
+         "replaces": None, "launches": LAUNCHES["flanger_file"], **k6},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                               "count": torch.cuda.device_count()}}), flush=True)

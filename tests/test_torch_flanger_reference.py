@@ -57,6 +57,26 @@ def test_port_matches_the_reference(signal, blocksize, fast):
     assert err_dbfs(got, _reference(JET, x)) <= PORT_DBFS
 
 
+# On 262,144 samples of white noise the worst sample reads far above
+# PORT_DBFS: over ten times the frames, the float32 delay's rounding meets
+# steeper stretches of noise, recirculated.  The solve does not set that
+# level: the dense one-hot solve that the file path used before the line
+# recurrence read -83.880 (jet) and -68.764 (negative) here, the
+# recurrence -83.880 and -68.764 (float32 on the CPU, 4 threads).  These
+# bars hold the whole-file solve to that level.
+LONG_NOISE_DBFS = {"jet": -83.5, "negative": -68.5}
+
+
+@pytest.mark.parametrize("name", sorted(LONG_NOISE_DBFS))
+def test_port_on_long_noise_holds_its_level(name):
+    params = {"jet": JET, "negative": NEGATIVE}[name]
+    x = noise(262_144)
+    chain, state, tmap = build_chain([{"effect_id": "f", "type": "flanger", "params": params}],
+                                     FS, 4096, channels_in=2, device="cpu")
+    got = chain.process_array(state, chain.targets(tmap), x, fast=True)[1]
+    assert err_dbfs(got, _reference(params, x)) <= LONG_NOISE_DBFS[name]
+
+
 def test_a_solve_cut_after_one_pass_fails_the_tolerance():
     """The line's input cut after one recirculation, v = x + fb tap(x),
     differs from the full recurrence by far more than the port may."""

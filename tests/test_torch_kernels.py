@@ -996,3 +996,126 @@ def test_kernels_launch_on_the_operands_card(dev1, kind):
     torch.cuda.synchronize(dev1)
     assert got[2] == 6 and ref[2] == 0
     _assert_runs_bitwise(got, ref)
+
+
+# --- K6: the flanger's whole-file solve -------------------------------------
+
+FLANGER_JET = {"rate_hz": 0.25, "depth_ms": 2.0, "base_ms": 3.0, "feedback": 0.7, "mix": 0.5,
+               "spread": 0.0}  # DEFAULT_PRESETS["Jet Flanger"]
+FLANGER_NEGATIVE = {"rate_hz": 2.0, "depth_ms": 4.0, "base_ms": 1.0, "feedback": -0.7,
+                    "mix": 1.0, "spread": 0.25}
+FLANGER_DEEP = {"rate_hz": 1.3, "depth_ms": 5.0, "base_ms": 10.0, "feedback": 0.9, "mix": 0.7,
+                "spread": 0.5}  # taps out to the history's far end
+# name: (params, fs, file axis, frames) through Flanger.file_operands, or
+# (None, history, (ca_lo, ca_hi), frames) for random operands.
+K6_CASES = {
+    "jet-demo-length": (FLANGER_JET, 48000, (), 892_928),
+    "negative-spread": (FLANGER_NEGATIVE, 48000, (), 200_000),
+    "files3": (FLANGER_JET, 48000, (3,), 100_000),
+    "padded": (FLANGER_NEGATIVE, 48000, (), 100_003),
+    "fs96k": (FLANGER_JET, 96000, (), 200_000),
+    "fs96k-deep": (FLANGER_DEEP, 96000, (), 100_000),
+    "random-reach": (None, 728, (24, 727), 100_000),
+    "span1-random": (None, 100, (3, 99), 5_000),
+}
+
+
+def _k6_operands(dev, case, seed=7):
+    """flanger_file's operands: the flanger's own (noise input, a noise
+    history, 2 channels) or random ones of a given reach."""
+    from aefs_tpu_torch.models.flanger import Flanger
+
+    params, fs, files, n = K6_CASES[case]
+    rng = np.random.default_rng(seed)
+    if params is None:
+        h, (lo, hi) = fs, files
+        f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+        ca = torch.from_numpy(rng.integers(lo, hi + 1, (2, n)).astype(np.int32)).to(dev)
+        return (_noise(rng, (2, n), dev), ca, f32(rng.uniform(-0.6, 1.2, (4, 2, n))),
+                f32(0.7), f32(0.4), _noise(rng, (2, h), dev))
+    mdl = Flanger(fs, 256, device=dev)
+    p = {k: torch.tensor(float(v), device=dev) for k, v in params.items()}
+    st = {k: v.expand(files + v.shape).clone() for k, v in mdl.init_state().items()}
+    st["hist"] = _noise(rng, tuple(st["hist"].shape), dev)
+    xp, ca, w, _ = mdl.file_operands(st, p, _noise(rng, files + (2, n), dev))
+    return xp, ca, w, p["feedback"], p["mix"], st["hist"]
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
+def test_flanger_file_kernel_matches_plain(dev, case):
+    """K6 against its plain version on the card, bit for bit, y and v, in
+    one launch: "Jet Flanger" at the demo's length, negative feedback with
+    a channel spread, three files, a file padded to whole chunks, 96 kHz
+    (H = 1,448) out to the history's far end, random taps over the whole
+    history, and stretches of one sample."""
+    from aefs_tpu_torch.ops.kernels.flanger import flanger_file, flanger_file_plain
+
+    ops = _k6_operands(dev, case)
+    before = flanger_file.launches
+    got = flanger_file(*ops)
+    want = flanger_file_plain(*ops)
+    torch.cuda.synchronize()
+    assert flanger_file.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b), float((a - b).abs().max())
+
+
+@pytest.mark.parametrize("signal,frames,bar", [
+    ("tones", 6 * 4096, -90.0), ("noise", 6 * 4096, -90.0), ("noise", 262_144, -83.0),
+], ids=["tones", "noise", "noise-long"])
+def test_flanger_render_launches_k6_once_and_meets_the_reference(dev, signal, frames, bar):
+    """A whole-file "Jet Flanger" render on the card: one K6 launch, and
+    within -90 dBFS of the benchmark's float64 reference on the signals of
+    tests/test_torch_flanger_reference.py (the port's own bar there); on
+    262,144 samples of white noise within -83, the level the float32
+    delay's rounding sets there, whatever the solve (that file's
+    LONG_NOISE_DBFS); a batched render of three files: one launch too."""
+    from aefs_tpu_torch.core.chain import build_chain
+    from aefs_tpu_torch.core.config import DEFAULT_PRESETS
+    from aefs_tpu_torch.engine.engine import render_batch
+    from aefs_tpu_torch.ops.kernels.flanger import flanger_file
+    from benchmark.reference import flanger as ref
+    from helpers import noise, tones
+
+    x = {"tones": tones, "noise": noise}[signal](frames)
+    chain, state, tmap = build_chain([{"effect_id": "f", "type": "flanger",
+                                       "params": FLANGER_JET}], 48000, 4096, channels_in=2,
+                                     device=dev)
+    before = flanger_file.launches
+    got = chain.process_array(state, chain.targets(tmap), x, fast=True)[1]
+    assert flanger_file.launches == before + 1
+    want = ref.apply(x.T.astype(np.float64), {**ref.DEFAULTS, **FLANGER_JET}, 48000).T
+    err = float(np.max(np.abs(got.astype(np.float64) - want)))
+    assert 20.0 * np.log10(err) <= bar, err
+    before = flanger_file.launches
+    render_batch(DEFAULT_PRESETS["Jet Flanger"], [x[:20_000], x[:16_000], x[5:18_000]],
+                 48000, device="cuda")
+    assert flanger_file.launches == before + 1
+
+
+def test_flanger_file_rejects_bad_card_operands(dev):
+    """Operands on another device, strided, of a length off the 4-sample
+    grid or off a 16-byte boundary are refused before any launch."""
+    from aefs_tpu_torch.ops.kernels.flanger import flanger_file
+
+    x, ca, w, fb, mix, hist = _k6_operands(dev, "span1-random")
+    bad = [
+        (x.cpu(), ca, w, fb, mix, hist),
+        (x, ca.cpu(), w, fb, mix, hist),
+        (x, ca, w, fb.cpu(), mix, hist),
+        (x, ca, w, fb, mix, hist.cpu()),
+        (x.t().contiguous().t(), ca, w, fb, mix, hist),
+        (x, ca, w.transpose(1, 2).contiguous().transpose(1, 2), fb, mix, hist),
+        (x, ca, w, fb, mix, torch.zeros((2, 200), device=dev)[:, :100]),  # rows apart
+        (x[:, :-1].contiguous(), ca[:, :-1].contiguous(), w[..., :-1].contiguous(), fb, mix,
+         hist),
+        (torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x), ca, w, fb, mix,
+         hist),
+        (x, torch.empty(ca.numel() + 2, dtype=ca.dtype, device=dev)[2:].view(ca.shape), w, fb,
+         mix, hist),
+    ]
+    before = flanger_file.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            flanger_file(*args)
+    assert flanger_file.launches == before
