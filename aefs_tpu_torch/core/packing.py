@@ -28,7 +28,6 @@ buffers through pinned memory.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import threading
 
 import numpy as np
@@ -196,59 +195,6 @@ class HybridPacker:
         return unflatten_like_jax(self.skeleton, leaves)
 
 
-# CUgraphNodeType values (cuda.h).
-NODE_KERNEL, NODE_MEMCPY, NODE_MEMSET, NODE_GRAPH = 0, 1, 2, 4
-
-
-def graph_nodes(graph) -> dict:
-    """{node type: count} of a captured, kept ``torch.cuda.CUDAGraph``
-    (``keep_graph=True``), child graphs' nodes counted in, through the CUDA
-    driver (a ``cudaGraph_t`` is the driver's ``CUgraph``)."""
-    cuda = ctypes.CDLL("libcuda.so.1")
-    p, out = ctypes.c_void_p, ctypes.POINTER
-    cuda.cuGraphGetNodes.argtypes = [p, p, out(ctypes.c_size_t)]
-    cuda.cuGraphNodeGetType.argtypes = [p, out(ctypes.c_int)]
-    cuda.cuGraphChildGraphNodeGetGraph.argtypes = [p, out(p)]
-    for fn in (cuda.cuGraphGetNodes, cuda.cuGraphNodeGetType,
-               cuda.cuGraphChildGraphNodeGetGraph):
-        fn.restype = ctypes.c_int
-
-    def check(err, what):
-        if err:
-            raise RuntimeError(f"{what}: CUDA driver error {err}")
-
-    counts = {}
-
-    def walk(g):
-        n = ctypes.c_size_t(0)
-        check(cuda.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
-        nodes = (p * n.value)()
-        check(cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-        kind = ctypes.c_int(0)
-        for node in nodes:
-            check(cuda.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
-            if kind.value == NODE_GRAPH:
-                child = p(0)
-                check(cuda.cuGraphChildGraphNodeGetGraph(node, ctypes.byref(child)),
-                      "cuGraphChildGraphNodeGetGraph")
-                walk(child.value)
-            else:
-                counts[kind.value] = counts.get(kind.value, 0) + 1
-
-    walk(graph.raw_cuda_graph())
-    return counts
-
-
-def kernel_nodes(graph):
-    """The kernel nodes of a kept graph (``graph_nodes``), or None where
-    the driver cannot be asked: a count for the tracer never fails a
-    capture."""
-    try:
-        return graph_nodes(graph).get(NODE_KERNEL, 0)
-    except Exception:
-        return None
-
-
 def _storage(t):
     return t.untyped_storage().data_ptr()
 
@@ -336,11 +282,9 @@ class PackedRunner:
         # one replay makes), set and dropped as one value so a step reads a
         # consistent triple (ops/kernels:credit).
         self.captured = None
-        # The last capture: its seconds (the tracer's chain.capture span,
-        # warm-up aside) and its graph's kernel nodes (counted only while
-        # the tracer is enabled; else None, as on the CPU).
+        # The last capture's seconds (the tracer's chain.capture span,
+        # warm-up aside).
         self.capture_s = None
-        self.graph_kernels = None
 
     # -- JAX's methods ----------------------------------------------------
     def pack_state(self, state):
@@ -440,11 +384,7 @@ class PackedRunner:
                         self._step()
                 for s, cur in zip([stream] + sides, currents):
                     cur.wait_stream(s)
-                # While tracing, the graph is kept (keep_graph) to count its
-                # kernel nodes, and instantiated here, as the capture's end
-                # does otherwise, and not at a first replay.
-                count = TRACER.enabled
-                graph = torch.cuda.CUDAGraph(keep_graph=True) if count else torch.cuda.CUDAGraph()
+                graph = torch.cuda.CUDAGraph()
                 graph.side_pools = [_side_pool(d) for d in self.sides]
                 span = TRACER.timed("chain.capture", self.label)
                 with kernels.recording() as record:
@@ -452,11 +392,8 @@ class PackedRunner:
                                           capture_error_mode="thread_local"), \
                             _with_sides(self.device, stream, sides, graph.side_pools):
                         y = self._step()
-                if count:
-                    graph.instantiate()
                 span.close()
                 self.capture_s = span.ns / 1e9
-                self.graph_kernels = kernel_nodes(graph) if count else None
                 TRACER.count("chain.captures")
                 for g, k in zip(self.sgroups, keep):
                     g.copy_(k)
@@ -495,7 +432,6 @@ class PackedRunner:
         """Drop the graph and its output, and with them the graph's private
         memory pool; a later step captures again."""
         self.captured = None
-        self.graph_kernels = None
 
 
 class Staging:

@@ -1,21 +1,20 @@
-// Kernel K6: the regenerative flanger's whole-file solve in one launch
-// (flanger_file).
+// Kernel K6: the regenerative flanger's line solve in one launch
+// (flanger_file), for a whole file or a streaming step.
 //
-// Replaces no TPU kernel: the JAX package solves a file with XLA matmuls
-// (aefs_tpu/models/flanger.py:process_file, no pallas_call): per chunk of
-// 256 samples a dense one-hot tap operator, its in-chunk quarter squared
-// twice, and four dependent matvecs.  In eager PyTorch that form was
-// ~129,000 launches for an 18.6 s stereo file, each a few microseconds of
-// the card against ~18 us of the host.  Underneath is a scalar recurrence
-// per (file, channel) row:
+// Replaces no TPU kernel: the JAX package solves a block with XLA matmuls
+// (aefs_tpu/models/flanger.py, no pallas_call): per chunk of 256 samples a
+// dense one-hot tap operator, iterated or squared, and dependent matvecs.
+// In eager PyTorch that form was ~129,000 launches for an 18.6 s stereo
+// file, each a few microseconds of the card against ~18 us of the host.
+// Underneath is a scalar recurrence per (file or slot, channel) row:
 //
 //   tap[n] = ((w0[n] v[p] + w1[n] v[p+1]) + w2[n] v[p+2]) + w3[n] v[p+3],
-//            p = n - ca[n] - 1 (v before the file is the state's history)
-//   v[n]   = x[n] + fb tap[n]                       (the delay line)
-//   y[n]   = (1 - mix) x[n] + mix tap[n]
+//            p = n - ca[n] - 1 (v before the block is the state's history)
+//   v[n]   = x[n] + fb[r] tap[n]                    (the delay line)
+//   y[n]   = (1 - mix[r]) x[n] + mix[r] tap[n]
 //
-// and, since ca >= 24 (models/flanger.py:D_MIN), its nearest read is at
-// least 22 samples back.  So any stretch of L <= min(ca) - 2 consecutive
+// and, since ca >= 24 (ops/kernels/flanger.py:D_MIN), its nearest read is
+// at least 22 samples back.  So any stretch of L <= min(ca) - 2 consecutive
 // samples reads only v from before the stretch, and its L samples are
 // computed at once.
 //
@@ -79,7 +78,7 @@ __device__ __forceinline__ void stage_tile(float* st, const float* x, const int*
   }
 }
 
-// x, ca, y, v (rows, n); w (4, rows, n); hist (rows, h); fb, mix 0-dim.
+// x, ca, y, v (rows, n); w (4, rows, n); hist (rows, h); fb, mix (rows).
 // One warp per row; dynamic shared memory: the ring (mask + 1 floats),
 // then kStages stage buffers of kOperands * kTile words.
 __global__ void __launch_bounds__(32) flanger_file_kernel(
@@ -94,8 +93,8 @@ __global__ void __launch_bounds__(32) flanger_file_kernel(
   const int r = blockIdx.x;
   const long long off = (long long)r * n;
   const long long plane = (long long)rows * n;
-  const float fb = *fb_p;
-  const float mix = *mix_p;
+  const float fb = fb_p[r];
+  const float mix = mix_p[r];
   const float dry = 1.0f - mix;
 
   // Ring position of stream sample q (history at 0..h-1, x[i] at h + i).
@@ -168,10 +167,11 @@ __global__ void __launch_bounds__(32) flanger_file_kernel(
 }  // namespace
 
 // Kernel K6.  x (rows, n), ca (rows, n) int32, w (4, rows, n): the cubic
-// tap weights; fb, mix: 0-dim float32 on the card; hist (rows, h): the
-// line signal before the file, oldest first.  Outputs y and v (rows, n).
-// Needs 3 <= ca <= h - 1 (the taps read from the history's first sample
-// to 2 samples back); outside that the taps read stale ring entries.
+// tap weights; fb, mix (rows) float32 on the card, one value a row; hist
+// (rows, h): the line signal before the block, oldest first.  Outputs y
+// and v (rows, n).  Needs 24 <= ca <= h - 1 (the taps read from the
+// history's first sample to 22 samples back); outside that the taps read
+// stale ring entries.
 // Refuses (cudaErrorInvalidValue) an n that is not a multiple of 4, or x,
 // ca or w off a 16-byte boundary: the stages copy 16 bytes at a time.
 // Launches on ``stream`` of ``device``; returns the CUDA error code (0 on

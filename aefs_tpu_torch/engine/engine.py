@@ -511,8 +511,6 @@ class AudioEngine:
             self._staging.put(np.asarray(in_block, np.float32).T, runner.x)
         with TRACER.span("chain.replay", seq):
             y = runner.run()[1]
-        if runner.graph_kernels is not None:
-            TRACER.count("chain.graph_kernels", runner.graph_kernels)
         return chain, y
 
     def process_stream_block(self, in_block: np.ndarray) -> np.ndarray:

@@ -8,7 +8,7 @@ ctypes.  No PyTorch headers are compiled, so the build takes seconds.
 
 Each kernel module (``resample.py``: K1, K3, the octaver's and the
 chorus's block steps; ``comb.py``: K2, K4; ``biquad.py``: K5, the biquad's
-streaming block step; ``flanger.py``: K6, the flanger's whole-file solve)
+streaming block step; ``flanger.py``: K6, the flanger's line solve)
 holds the wrappers, their plain versions and one launch counter per
 wrapper.  A wrapper takes the plain version only for
 CPU tensors; on CUDA tensors it launches the kernel or raises.  A sharded step launches on every card from one thread: each

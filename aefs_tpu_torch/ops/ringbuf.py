@@ -291,25 +291,13 @@ def cubic_hermite(frac, y0, y1, y2, y3):
 def cubic_tap_weights(fr):
     """4-point cubic-Hermite (Catmull-Rom) tap weights at fraction ``fr``:
     the basis polynomials ``cubic_hermite`` evaluates, for callers that
-    hold the weights and the tap positions apart (the flanger's streaming
-    operator and its file solve)."""
+    hold the weights and the tap positions apart (the flanger's line
+    solve)."""
     w0 = fr * (-0.5 + fr * (1.0 - 0.5 * fr))
     w1 = 1.0 + fr * fr * (-2.5 + 1.5 * fr)
     w2 = fr * (0.5 + fr * (2.0 - 1.5 * fr))
     w3 = fr * fr * (0.5 * fr - 0.5)
     return w0, w1, w2, w3
-
-
-def cubic_onehot_matrix(t0, fr, length: int):
-    """Dense form of the 4-tap cubic read: W[..., i, t0[i] + k] =
-    w_k(fr[i]) (``cubic_tap_weights``).  t0: (..., N) int column of the
-    first tap; fr: (..., N); positions must be in range (no wrap lanes).
-    Returns (..., N, length) float32."""
-    col = torch.arange(length, dtype=t0.dtype, device=t0.device)
-    w0, w1, w2, w3 = cubic_tap_weights(fr)
-    t = t0[..., None]
-    return (w0[..., None] * (col == t) + w1[..., None] * (col == t + 1)
-            + w2[..., None] * (col == t + 2) + w3[..., None] * (col == t + 3))
 
 
 def fractional_read_cubic(hist, x, ago):

@@ -657,7 +657,7 @@ def flanger_operands(dev, params, demo):
     p = {k: torch.tensor(float(v), device=dev) for k, v in params.items()}
     st = mdl.init_state()
     x = torch.from_numpy(np.ascontiguousarray(demo.T)).to(dev)
-    xp, ca, w, _ = mdl.file_operands(st, p, x)
+    xp, ca, w = mdl.operands(p, x, mdl.file_phases(st, p, x.shape[-1])[0])
     return xp, ca, w, p["feedback"], p["mix"], st["hist"]
 
 

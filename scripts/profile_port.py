@@ -48,7 +48,7 @@ itself carries no instrumentation.  Reported per step (block or render):
   busy device time of the work that starts inside the span's mirror on the
   device timeline;
 - ``top_kernels``: the device kernels with the most device time;
-- ``port_kernels``: the hand-written kernels (K1-K5, ``csrc/``), their
+- ``port_kernels``: the hand-written kernels (K1-K6, ``csrc/``), their
   calls and device time per step, inside a graph replay or not.
 
 Prints one JSON object and writes it to ``--out``.  Imports no JAX.
@@ -81,9 +81,10 @@ from aefs_tpu_torch.engine.wavio import read_wav_file  # noqa: E402
 from aefs_tpu_torch.models import EFFECT_REGISTRY, ParallelChains  # noqa: E402
 
 BLOCK = 256
-# The hand-written kernels of csrc/ (K1, K3; K2 and K4 share comb_bank_kernel).
+# The hand-written kernels of csrc/ (K1, K3, K5, K6; K2 and K4 share
+# comb_bank_kernel).
 PORT_KERNELS = ("octaver_step_kernel", "chorus_step_kernel", "comb_bank_kernel",
-                "comb_side_sums_kernel", "biquad_step_kernel")
+                "comb_side_sums_kernel", "biquad_step_kernel", "flanger_file_kernel")
 
 
 @contextmanager

@@ -51,6 +51,7 @@ CHAINS = {
     "Multiband Master": ("mml", "drive_db", 6.0),
     "Concert Hall (Convolution)": ("cv1", "mix_wet", 0.9),
     "Clean Noise Removal": ("p6", "threshold_db", -30.0),
+    "Jet Flanger": ("jf1", "feedback", -0.5),
 }
 # Where a library op picks another algorithm under capture, the op and the
 # bar it is held to instead of bitwise equality (none measured so far).
@@ -112,20 +113,23 @@ def _engine_stream(cfg, blocks, change, device, pipelined=False):
 def test_engine_graph_matches_eager_step(dev, name):
     """40 blocks through the engine (one graph replay each, an update_param
     at block 20 written into the static targets) against the eager step on
-    the card; K1 and K3 credited once per replay."""
+    the card; K1, K3 and K6 credited once per replay."""
+    from aefs_tpu_torch.ops.kernels.flanger import flanger_file
     from aefs_tpu_torch.ops.kernels.resample import chorus_step, octaver_step
 
     cfg = _presets()[name]
     blocks = _blocks(11)
     want = _eager_stream(cfg, blocks, CHAINS[name], dev)
-    k1, k3 = octaver_step.launches, chorus_step.launches
+    counters = (octaver_step, chorus_step, flanger_file)
+    before = [f.launches for f in counters]
     got = _engine_stream(cfg, blocks, CHAINS[name], dev)
-    k1, k3 = octaver_step.launches - k1, chorus_step.launches - k3
+    k1, k3, k6 = (f.launches - b for f, b in zip(counters, before))
     assert np.all(np.isfinite(got))
     _held(name, got, want)
     types = [c["type"] for c in cfg]
     assert k1 == (BLOCKS if "octaver" in types else 0)
     assert k3 == (BLOCKS if "chorus" in types else 0)
+    assert k6 == (BLOCKS if "flanger" in types else 0)
 
 
 def test_engine_pipelined_graph_is_sync_shifted(dev):
@@ -164,17 +168,11 @@ def test_step_runner_replays_what_it_captured(dev):
     assert not chain._runners
 
 
-def test_graph_kernel_nodes_and_the_capture_span(dev):
-    """A capture counts its graph's kernel nodes (``graph_kernels``); a
-    replay traced by the profiler runs at least those and at most those
-    and its copy and fill nodes (a device-to-device copy node may run as a
-    copy kernel); ``capture_s`` is the tracer's ``chain.capture`` span; a
-    release forgets the count, and a capture with the tracer disabled
-    takes none."""
-    from torch.profiler import ProfilerActivity, profile
-
+def test_the_capture_span(dev):
+    """``capture_s`` is the tracer's ``chain.capture`` span and a capture
+    counts in ``chain.captures``; a capture with the tracer disabled is
+    made the same way and still takes its seconds."""
     from aefs_tpu_torch.core.chain import build_chain
-    from aefs_tpu_torch.core.packing import NODE_KERNEL, NODE_MEMCPY, NODE_MEMSET, graph_nodes
     from aefs_tpu_torch.utils.metrics import TRACER
 
     TRACER.reset()
@@ -189,34 +187,11 @@ def test_graph_kernel_nodes_and_the_capture_span(dev):
         (_label, t0, t1), = ex["spans"]["chain.capture"]
         assert runner.capture_s == (t1 - t0) / 1e9
         assert ex["counters"]["chain.captures"] == 1
-        kinds = graph_nodes(runner.graph)
-        assert runner.graph_kernels == kinds[NODE_KERNEL] > 100
-        most = kinds[NODE_KERNEL] + kinds.get(NODE_MEMCPY, 0) + kinds.get(NODE_MEMSET, 0)
-        seen = 0
-        for _ in range(3):  # the profiler now and then drops a replay's records
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(3):
-                    runner.run()
-                torch.cuda.synchronize()
-            events = list(prof.profiler.kineto_results.events())
-            launches = {ev.correlation_id() for ev in events
-                        if ev.name().startswith("cudaGraphLaunch")}
-            per = {}
-            for ev in events:
-                if (ev.device_type() == torch.autograd.DeviceType.CUDA
-                        and ev.correlation_id() in launches
-                        and not ev.name().startswith(("Memcpy", "Memset"))):
-                    per[ev.correlation_id()] = per.get(ev.correlation_id(), 0) + 1
-            seen = max([seen, *per.values()])
-            if seen >= runner.graph_kernels:
-                break
-        assert runner.graph_kernels <= seen <= most, (seen, kinds)
         chain.release()
-        assert runner.graph_kernels is None
-        TRACER.disable()  # untraced, the graph is not kept and not counted
+        TRACER.disable()
         runner = chain.packed_step()
         runner.run()
-        assert runner.graph_kernels is None and runner.capture_s > 0
+        assert runner.graph is not None and runner.capture_s > 0
     finally:
         TRACER.disable()
         TRACER.reset()
@@ -244,16 +219,23 @@ def _pool_reference(pool, chain, steps):
     return outs
 
 
-@pytest.mark.parametrize("mode", ["generic", "grid", "shard4"])
+# The pool's chain and the update_param at step 20 for each mode.
+POOL_CHAINS = {"flagship": ("f", "cutoff_hz", 900.0), "Jet Flanger": ("jf1", "feedback", -0.5)}
+
+
+@pytest.mark.parametrize("mode", ["generic", "grid", "shard4", "jet"])
 def test_pool_graph_matches_eager_step(dev, mode, monkeypatch):
     """The flagship pool at 16 slots, 40 steps through a release, a claim
     and an update_param at step 20, against the eager batched step on the
-    card; ``shard4`` is four shards on the one card (one graph each)."""
+    card; ``shard4`` is four shards on the one card (one graph each);
+    ``jet`` is "Jet Flanger"'s pool, one slot's feedback its own from step
+    20 (K6 with a feedback a slot)."""
     from aefs_tpu_torch.core.chain import build_chain
     from aefs_tpu_torch.parallel import mesh
     from aefs_tpu_torch.server.pool import SessionPool, grid_static_overrides
 
-    cfg = _presets()["flagship"]
+    name = "Jet Flanger" if mode == "jet" else "flagship"
+    cfg = _presets()[name]
     if mode == "shard4":
         monkeypatch.setattr(mesh, "visible_devices", lambda device=None: [dev] * 4)
     pool = SessionPool(cfg, n_slots=POOL_SLOTS, grid=mode == "grid",
@@ -272,7 +254,7 @@ def test_pool_graph_matches_eager_step(dev, mode, monkeypatch):
             pool.release(slots[3])
             assert pool.claim() is not None
             resets = [slots[3]]
-            pool.update_param(slots[5], "f", "cutoff_hz", 900.0)
+            pool.update_param(slots[5], *POOL_CHAINS[name])
         blocks = {s: (0.3 * rng.standard_normal(N)).astype(np.float32) for s in slots}
         tbuf = pool._tbuf.copy()
         out = pool.step_blocks(blocks)

@@ -998,7 +998,7 @@ def test_kernels_launch_on_the_operands_card(dev1, kind):
     _assert_runs_bitwise(got, ref)
 
 
-# --- K6: the flanger's whole-file solve -------------------------------------
+# --- K6: the flanger's line solve ------------------------------------------
 
 FLANGER_JET = {"rate_hz": 0.25, "depth_ms": 2.0, "base_ms": 3.0, "feedback": 0.7, "mix": 0.5,
                "spread": 0.0}  # DEFAULT_PRESETS["Jet Flanger"]
@@ -1006,8 +1006,9 @@ FLANGER_NEGATIVE = {"rate_hz": 2.0, "depth_ms": 4.0, "base_ms": 1.0, "feedback":
                     "mix": 1.0, "spread": 0.25}
 FLANGER_DEEP = {"rate_hz": 1.3, "depth_ms": 5.0, "base_ms": 10.0, "feedback": 0.9, "mix": 0.7,
                 "spread": 0.5}  # taps out to the history's far end
-# name: (params, fs, file axis, frames) through Flanger.file_operands, or
-# (None, history, (ca_lo, ca_hi), frames) for random operands.
+# name: (params, fs, file axis, frames) through Flanger.operands at the
+# file's phases, or (None, history, (ca_lo, ca_hi), frames) for random
+# operands (the "rows" cases with a feedback and a mix of their own a row).
 K6_CASES = {
     "jet-demo-length": (FLANGER_JET, 48000, (), 892_928),
     "negative-spread": (FLANGER_NEGATIVE, 48000, (), 200_000),
@@ -1016,7 +1017,9 @@ K6_CASES = {
     "fs96k": (FLANGER_JET, 96000, (), 200_000),
     "fs96k-deep": (FLANGER_DEEP, 96000, (), 100_000),
     "random-reach": (None, 728, (24, 727), 100_000),
-    "span1-random": (None, 100, (3, 99), 5_000),
+    "floor-random": (None, 100, (24, 99), 5_000),
+    "rows-fb-mix": (None, 728, (24, 727), 100_000),
+    "rows-at-floor": (None, 728, (24, 24), 4_096),
 }
 
 
@@ -1030,14 +1033,19 @@ def _k6_operands(dev, case, seed=7):
     if params is None:
         h, (lo, hi) = fs, files
         f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
-        ca = torch.from_numpy(rng.integers(lo, hi + 1, (2, n)).astype(np.int32)).to(dev)
-        return (_noise(rng, (2, n), dev), ca, f32(rng.uniform(-0.6, 1.2, (4, 2, n))),
-                f32(0.7), f32(0.4), _noise(rng, (2, h), dev))
+        ca = torch.from_numpy(rng.integers(lo, hi + 1, (3, 2, n)).astype(np.int32)).to(dev)
+        if case.startswith("rows"):  # the feedback one a file, the mix one a row
+            fb, mix = f32([[0.7], [-0.6], [0.9]]), f32([[0.4, 1.0], [0.0, 0.3], [0.8, 0.5]])
+        else:
+            fb, mix = f32(0.7), f32(0.4)
+        return (_noise(rng, (3, 2, n), dev), ca, f32(rng.uniform(-0.6, 1.2, (4, 3, 2, n))),
+                fb, mix, _noise(rng, (3, 2, h), dev))
     mdl = Flanger(fs, 256, device=dev)
     p = {k: torch.tensor(float(v), device=dev) for k, v in params.items()}
     st = {k: v.expand(files + v.shape).clone() for k, v in mdl.init_state().items()}
     st["hist"] = _noise(rng, tuple(st["hist"].shape), dev)
-    xp, ca, w, _ = mdl.file_operands(st, p, _noise(rng, files + (2, n), dev))
+    x = _noise(rng, files + (2, n), dev)
+    xp, ca, w = mdl.operands(p, x, mdl.file_phases(st, p, n)[0])
     return xp, ca, w, p["feedback"], p["mix"], st["hist"]
 
 
@@ -1047,7 +1055,8 @@ def test_flanger_file_kernel_matches_plain(dev, case):
     one launch: "Jet Flanger" at the demo's length, negative feedback with
     a channel spread, three files, a file padded to whole chunks, 96 kHz
     (H = 1,448) out to the history's far end, random taps over the whole
-    history, and stretches of one sample."""
+    history and at the floor (K6's stretches of 22), and a feedback and a
+    mix of their own a row."""
     from aefs_tpu_torch.ops.kernels.flanger import flanger_file, flanger_file_plain
 
     ops = _k6_operands(dev, case)
@@ -1098,17 +1107,18 @@ def test_flanger_file_rejects_bad_card_operands(dev):
     grid or off a 16-byte boundary are refused before any launch."""
     from aefs_tpu_torch.ops.kernels.flanger import flanger_file
 
-    x, ca, w, fb, mix, hist = _k6_operands(dev, "span1-random")
+    x, ca, w, fb, mix, hist = _k6_operands(dev, "floor-random")
     bad = [
         (x.cpu(), ca, w, fb, mix, hist),
         (x, ca.cpu(), w, fb, mix, hist),
         (x, ca, w, fb.cpu(), mix, hist),
+        (x, ca, w, fb.expand(3), mix, hist),  # not one a file or a row
         (x, ca, w, fb, mix, hist.cpu()),
-        (x.t().contiguous().t(), ca, w, fb, mix, hist),
+        (x.transpose(-1, -2).contiguous().transpose(-1, -2), ca, w, fb, mix, hist),
         (x, ca, w.transpose(1, 2).contiguous().transpose(1, 2), fb, mix, hist),
-        (x, ca, w, fb, mix, torch.zeros((2, 200), device=dev)[:, :100]),  # rows apart
-        (x[:, :-1].contiguous(), ca[:, :-1].contiguous(), w[..., :-1].contiguous(), fb, mix,
-         hist),
+        (x, ca, w, fb, mix, torch.zeros((3, 2, 200), device=dev)[..., :100]),  # rows apart
+        (x[..., :-1].contiguous(), ca[..., :-1].contiguous(), w[..., :-1].contiguous(), fb,
+         mix, hist),
         (torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x), ca, w, fb, mix,
          hist),
         (x, torch.empty(ca.numel() + 2, dtype=ca.dtype, device=dev)[2:].view(ca.shape), w, fb,

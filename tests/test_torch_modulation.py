@@ -105,7 +105,7 @@ def test_streaming_vs_jax_and_oracle(etype, _case, params, signal):
 @pytest.mark.parametrize("etype,_case,params,signal", CASES, ids=IDS)
 def test_file_mode_vs_jax_and_oracle(etype, _case, params, signal):
     """File mode: ``process_file`` over the whole signal (the flanger's
-    batched squared solve; the chorus reads the whole file through K3)."""
+    line solve, once; the chorus reads the whole file through K3)."""
     _check(etype, params, signal(FILE_FRAMES), 4096, fast=True)
 
 
@@ -267,7 +267,7 @@ def test_modulation_type_is_ported(etype):
 @pytest.mark.parametrize("etype,_case,params,signal", CASES, ids=IDS)
 def test_file_mode_file_axis(etype, _case, params, signal):
     """``process_file`` over three files on a leading file axis: each file
-    bit-equal to its own single-file call (the flanger's chunk loop once
+    bit-equal to its own single-file call (the flanger's line solve once
     for all files, the chorus's K3 slot grid with S = F)."""
     from test_torch_batch import file_axis_vs_per_file
 
