@@ -780,6 +780,7 @@ class AudioEngine:
         try:
             print("Info: Processing WAV")
             from aefs_tpu_torch import native
+            from aefs_tpu_torch.engine import jsonfmt
 
             with TRACER.span("front.decode", rid):
                 audio, fs = _decode_data_url(contents)
@@ -811,10 +812,13 @@ class AudioEngine:
                     if analysis is not None:
                         head_dict["analysis"] = analysis
                     head = json.dumps(head_dict)
+                    with TRACER.span("front.samples", rid):
+                        original = jsonfmt.json_f32_array(mono.flatten())
+                        mixed = jsonfmt.json_f32_array(processed.mean(axis=1))
                     return (
                         head[:-1]
-                        + ',"original_samples":' + native.json_f32_array(mono.flatten())
-                        + ',"processed_samples":' + native.json_f32_array(processed.mean(axis=1))
+                        + ',"original_samples":' + original
+                        + ',"processed_samples":' + mixed
                         + "}"
                     )
 

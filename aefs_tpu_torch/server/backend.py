@@ -72,8 +72,8 @@ def serialize_audio_data(in_frames, out_frames, sample_rate, analysis=None,
                          stereo_in=False):
     """Concatenate queued blocks and serialize the plot payload: CPU-heavy,
     runs in an executor off the event loop (backend.py:15-29, :49-58).  The
-    float lists use the native serializer (``native.json_f32_array``)."""
-    from aefs_tpu_torch import native
+    float lists use the port's serializer (``engine/jsonfmt.py``)."""
+    from aefs_tpu_torch.engine import jsonfmt
 
     # Accept pre-concatenated arrays (the analyzer path already paid for the
     # concatenate).
@@ -88,12 +88,12 @@ def serialize_audio_data(in_frames, out_frames, sample_rate, analysis=None,
         # input_r only when the capture is genuinely stereo: mono input is
         # fanned to two identical columns before the tap.
         if stereo_in and in_chunk.shape[1] > 1:
-            extra += ',"input_r":' + native.json_f32_array(in_chunk[:, 1])
-        extra += ',"output_r":' + native.json_f32_array(out_chunk[:, 1])
+            extra += ',"input_r":' + jsonfmt.json_f32_array(in_chunk[:, 1])
+        extra += ',"output_r":' + jsonfmt.json_f32_array(out_chunk[:, 1])
     return (
         head_json[:-1]
-        + ',"input":' + native.json_f32_array(in_chunk[:, 0])
-        + ',"output":' + native.json_f32_array(out_chunk[:, 0])
+        + ',"input":' + jsonfmt.json_f32_array(in_chunk[:, 0])
+        + ',"output":' + jsonfmt.json_f32_array(out_chunk[:, 0])
         + extra
         + "}"
     )
@@ -153,7 +153,7 @@ async def audio_streamer(websocket, audio_engine):
     one message.  Ends with ``{"type": "stream_audio_end"}`` when the file
     runs out (the engine enqueues a ``None`` sentinel) or the stream is
     stopped."""
-    from aefs_tpu_torch import native
+    from aefs_tpu_torch.engine import jsonfmt
 
     loop = asyncio.get_running_loop()
     q = audio_engine.playback_queue
@@ -189,8 +189,8 @@ async def audio_streamer(websocket, audio_engine):
                 })
                 await websocket.send(
                     head[:-1]
-                    + ',"left":' + native.json_f32_array(chunk[:, 0])
-                    + ',"right":' + native.json_f32_array(chunk[:, min(1, chunk.shape[1] - 1)])
+                    + ',"left":' + jsonfmt.json_f32_array(chunk[:, 0])
+                    + ',"right":' + jsonfmt.json_f32_array(chunk[:, min(1, chunk.shape[1] - 1)])
                     + "}")
             if done:
                 await websocket.send(json.dumps({"type": "stream_audio_end"}))

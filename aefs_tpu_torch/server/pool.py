@@ -902,7 +902,7 @@ class PoolServer:
         return b
 
     async def handler(self, websocket):
-        from aefs_tpu_torch import native
+        from aefs_tpu_torch.engine import jsonfmt
 
         loop = asyncio.get_running_loop()
         key, pool = self.multi.default_key, self.multi.default_pool
@@ -932,8 +932,8 @@ class PoolServer:
                         head = json.dumps({"type": "processed_block", "seq": seq})
                         await websocket.send(
                             head[:-1]
-                            + ',"output":' + native.json_f32_array(out[:, 0])
-                            + ',"output_r":' + native.json_f32_array(out[:, 1])
+                            + ',"output":' + jsonfmt.json_f32_array(out[:, 0])
+                            + ',"output_r":' + jsonfmt.json_f32_array(out[:, 1])
                             + "}")
                         TRACER.record("pool.reply", gen, resolved, TRACER.clock())
                     elif command == "build_chain":
