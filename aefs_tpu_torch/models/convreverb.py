@@ -12,6 +12,17 @@ blockwise end-of-file state exactly.  On a mesh with a model axis
 (parallel/mesh.py) ``spec_hist`` arrives split over its partition axis
 (``ModelShards``), and each model device does its partitions' MAC
 (``ops/fftops.py:partitioned_fft_conv_split``).
+
+Spans and counters (``utils/metrics.py:TRACER``, rid None): ``convreverb.build``
+(the IR, its partition spectra and their copy to the device, in
+``__init__``); per ``process_file`` call, ``convreverb.ir_spectrum`` (the
+host's float64 transform of the IR), ``convreverb.conv`` (the forward
+transform, the product and the inverse as the host enqueues them: no
+device wait, so on the card this is enqueue time) and ``convreverb.state``
+(the end-of-file delay line's rebuild); counters ``convreverb.file_renders``
+(files in the call) and ``convreverb.host_fft_points`` (nfft times the IR's
+channels, transformed on the host).  ``process``, the captured streaming
+step, has none.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ from aefs_tpu_torch.core.params import ParamSpec
 from aefs_tpu_torch.models.base import EffectModel, ModelShards, lead
 from aefs_tpu_torch.ops.fftops import (
     partition_ir, partitioned_fft_conv, partitioned_fft_conv_split, rfft_last)
+from aefs_tpu_torch.utils.metrics import TRACER
 
 
 def synthetic_ir(fs: int, seconds: float, channels: int = 2, seed: int = 1234):
@@ -51,24 +63,25 @@ class ConvReverb(EffectModel):
         self.hop = int(hop) if hop else int(blocksize)
         if blocksize % self.hop != 0:
             raise ValueError("blocksize must be a multiple of the conv hop")
-        if ir is None:
-            ir = synthetic_ir(fs, float(ir_seconds), channels)
-        ir = np.atleast_2d(np.asarray(ir, np.float32))
-        if ir.shape[0] == 1 and channels > 1:
-            ir = np.repeat(ir, channels, axis=0)
-        # partition_multiple m: zero-pad the IR so (P-1) % m == 0, as the
-        # JAX package does for its sharded partition axis; zero partitions
-        # add nothing, but they set the state's P.
-        m = max(int(partition_multiple), 1)
-        p_raw = max(1, -(-ir.shape[1] // self.hop))
-        pad_parts = (-(p_raw - 1)) % m
-        if pad_parts:
-            ir = np.pad(ir, ((0, 0), (0, pad_parts * self.hop +
-                                      (p_raw * self.hop - ir.shape[1]))))
-        spectra = np.stack([partition_ir(ch, self.hop) for ch in ir])  # (C, 2, P, hop+1)
-        # (C, P, hop+1) complex64 partition spectra: static weights.
-        self.ir_spectra = torch.complex(*torch.from_numpy(spectra).to(device).unbind(1))
-        self.partitions = spectra.shape[2]
+        with TRACER.span("convreverb.build"):
+            if ir is None:
+                ir = synthetic_ir(fs, float(ir_seconds), channels)
+            ir = np.atleast_2d(np.asarray(ir, np.float32))
+            if ir.shape[0] == 1 and channels > 1:
+                ir = np.repeat(ir, channels, axis=0)
+            # partition_multiple m: zero-pad the IR so (P-1) % m == 0, as the
+            # JAX package does for its sharded partition axis; zero partitions
+            # add nothing, but they set the state's P.
+            m = max(int(partition_multiple), 1)
+            p_raw = max(1, -(-ir.shape[1] // self.hop))
+            pad_parts = (-(p_raw - 1)) % m
+            if pad_parts:
+                ir = np.pad(ir, ((0, 0), (0, pad_parts * self.hop +
+                                          (p_raw * self.hop - ir.shape[1]))))
+            spectra = np.stack([partition_ir(ch, self.hop) for ch in ir])  # (C, 2, P, hop+1)
+            # (C, P, hop+1) complex64 partition spectra: static weights.
+            self.ir_spectra = torch.complex(*torch.from_numpy(spectra).to(device).unbind(1))
+            self.partitions = spectra.shape[2]
         # Time-domain IR kept host-side for the whole-file path.
         self._ir_time = ir
         self._ir_parts = {}  # (device, lo, hi) -> partition spectra there
@@ -109,24 +122,30 @@ class ConvReverb(EffectModel):
         state is rebuilt exactly (in_tail = the last hop; the spectra of the
         last P-1 overlap-save frames of the zero-extended input), so
         blockwise processing resumes seamlessly.  x: (C, N), or (F, C, N)
-        for F files."""
+        for F files.  The ``convreverb.conv`` span times the host's enqueue
+        of the transforms and the product, not the device's work."""
         n = x.shape[-1]
         hop = self.hop
         if n % hop != 0 or n < hop:
             return self.process(state, p, x)
+        TRACER.count("convreverb.file_renders", x.shape[0] if x.dim() == 3 else 1)
         nfft = 1 << int(np.ceil(np.log2(n + self._ir_time.shape[1])))
-        h_spec = np.fft.fft(self._ir_time.astype(np.float64), nfft).astype(np.complex64)
-        xs = torch.fft.fft(x, nfft)
-        wet = torch.fft.ifft(xs * torch.from_numpy(h_spec).to(x.device)).real[..., :n]
+        with TRACER.span("convreverb.ir_spectrum"):
+            h_spec = np.fft.fft(self._ir_time.astype(np.float64), nfft).astype(np.complex64)
+        TRACER.count("convreverb.host_fft_points", nfft * self._ir_time.shape[0])
+        with TRACER.span("convreverb.conv"):
+            xs = torch.fft.fft(x, nfft)
+            wet = torch.fft.ifft(xs * torch.from_numpy(h_spec).to(x.device)).real[..., :n]
 
         pparts = self.partitions
-        if pparts > 1:
-            # The last P*hop samples, zero history before the signal start;
-            # frame i covers [i*hop, (i+2)*hop) of them, chronological.
-            seg = F.pad(x[..., -pparts * hop:], (max(pparts * hop - n, 0), 0))
-            fs_c = rfft_last(seg.unfold(-1, 2 * hop, hop))  # (..., C, P-1, hop+1)
-            spec_hist = torch.stack([fs_c.real, fs_c.imag], -3)
-        else:
-            # The IR fits in one hop: the delay line is empty.
-            spec_hist = torch.zeros(x.shape[:-1] + (2, 0, hop + 1), device=x.device)
+        with TRACER.span("convreverb.state"):
+            if pparts > 1:
+                # The last P*hop samples, zero history before the signal start;
+                # frame i covers [i*hop, (i+2)*hop) of them, chronological.
+                seg = F.pad(x[..., -pparts * hop:], (max(pparts * hop - n, 0), 0))
+                fs_c = rfft_last(seg.unfold(-1, 2 * hop, hop))  # (..., C, P-1, hop+1)
+                spec_hist = torch.stack([fs_c.real, fs_c.imag], -3)
+            else:
+                # The IR fits in one hop: the delay line is empty.
+                spec_hist = torch.zeros(x.shape[:-1] + (2, 0, hop + 1), device=x.device)
         return {"spec_hist": spec_hist, "in_tail": x[..., -hop:]}, self._mix(p, x, wet)
