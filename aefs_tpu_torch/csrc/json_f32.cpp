@@ -24,10 +24,23 @@
 // each: slice i writes its text (commas inside it) into its own region of
 // 16 bytes a value of the output, and the regions are then moved together
 // with a comma between.  Shorter arrays run on the calling thread.
+//
+// aefs_json_reply writes a whole reply into one buffer in one call: a list
+// of segments, each verbatim text, a float32 array in "%.5g" (the above),
+// or a 2-D float32 array as json.dumps writes the Python floats of its
+// .tolist(): float.__repr__ of each (double)v, whose shortest
+// round-trip digits come from std::to_chars, laid out as Python lays them
+// out (fixed for decimal exponents -4 to 15, with ".0" on integral values;
+// else d.ddde-05 / e+16), NaN and +-inf as NaN, Infinity, -Infinity, and
+// ", " between items.  aefs_json_plain tells whether a string's bytes go
+// into JSON as they are.
 
+#include <charconv>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <ctime>
 #include <system_error>
 #include <thread>
 #include <vector>
@@ -165,9 +178,178 @@ char* format_run(const float* data, int64_t n, char* p, int64_t* fallbacks) {
     return p;
 }
 
+// The longest text repr_one writes: "-1.2345678901234567e-45".
+constexpr int REPR_MAX = 24;
+
+// One value as json.dumps writes float((double)v); returns its end.
+inline char* repr_one(float v, char* p) {
+    double d = v;
+    if (std::isnan(d)) {
+        std::memcpy(p, "NaN", 3);
+        return p + 3;
+    }
+    if (std::signbit(d)) {
+        *p++ = '-';
+        d = -d;
+    }
+    if (std::isinf(d)) {
+        std::memcpy(p, "Infinity", 8);
+        return p + 8;
+    }
+    if (d == 0) {
+        std::memcpy(p, "0.0", 3);
+        return p + 3;
+    }
+    // The shortest digits, as d[.ddd]e(+|-)XX.
+    char s[32];
+    const char* end = std::to_chars(s, s + sizeof s, d, std::chars_format::scientific).ptr;
+    char digits[20];
+    int n = 0;
+    const char* q = s;
+    for (; *q != 'e'; ++q)
+        if (*q != '.') digits[n++] = *q;
+    int E = 0;
+    for (const char* r = q + 2; r < end; ++r) E = 10 * E + (*r - '0');
+    if (q[1] == '-') E = -E;
+    if (E < -4 || E > 15) {  // d.ddde-05, d.ddde+16
+        *p++ = digits[0];
+        if (n > 1) {
+            *p++ = '.';
+            std::memcpy(p, digits + 1, n - 1);
+            p += n - 1;
+        }
+        *p++ = 'e';
+        *p++ = E < 0 ? '-' : '+';
+        unsigned a = E < 0 ? -E : E;
+        if (a >= 100) {
+            *p++ = (char)('0' + a / 100);
+            a %= 100;
+        }
+        *p++ = (char)('0' + a / 10);
+        *p++ = (char)('0' + a % 10);
+        return p;
+    }
+    if (E < 0) {  // 0.000ddd
+        *p++ = '0';
+        *p++ = '.';
+        for (int i = 0; i < -E - 1; ++i) *p++ = '0';
+        std::memcpy(p, digits, n);
+        return p + n;
+    }
+    int whole = E + 1;  // digits before the point
+    if (n <= whole) {   // integral: ddd00.0
+        std::memcpy(p, digits, n);
+        p += n;
+        for (int i = n; i < whole; ++i) *p++ = '0';
+        *p++ = '.';
+        *p++ = '0';
+        return p;
+    }
+    std::memcpy(p, digits, whole);
+    p += whole;
+    *p++ = '.';
+    std::memcpy(p, digits + whole, n - whole);
+    return p + n - whole;
+}
+
+// x[0..n) as json.dumps writes a list of their Python floats: "[a, b]".
+char* repr_list(const float* x, int64_t n, char* p) {
+    *p++ = '[';
+    for (int64_t i = 0; i < n; ++i) {
+        if (i) {
+            *p++ = ',';
+            *p++ = ' ';
+        }
+        p = repr_one(x[i], p);
+    }
+    *p++ = ']';
+    return p;
+}
+
+inline int64_t now_ns() {
+    timespec t;
+    clock_gettime(CLOCK_MONOTONIC, &t);  // time.perf_counter_ns's clock
+    return (int64_t)t.tv_sec * 1000000000 + t.tv_nsec;
+}
+
+enum : int32_t { SEG_TEXT = 0, SEG_REPR = 1, SEG_G5 = 2 };
+
 }  // namespace
 
+extern "C" int64_t aefs_json_f32_array(const float* data, int64_t n, char* out, int threads,
+                                       int64_t* fallbacks, int64_t* slices);
+
 extern "C" {
+
+// 1 when s[0..n) is printable ASCII without '"' and '\' (json.dumps
+// writes such a string as it is, between quotes), else 0.
+int aefs_json_plain(const unsigned char* s, int64_t n) {
+    unsigned char bad = 0;  // bytes throughout, so the loop vectorizes
+    for (int64_t i = 0; i < n; ++i) {
+        unsigned char c = s[i];
+        bad |= (unsigned char)((unsigned char)(c - 0x20) > 0x5e) | (c == '"') | (c == '\\');
+    }
+    return !bad;
+}
+
+// The bytes one segment may take: the bound aefs_json_reply's caller
+// sizes its output by.
+int64_t aefs_json_bound(int32_t kind, int64_t d0, int64_t d1) {
+    switch (kind) {
+        case SEG_TEXT: return d0;
+        case SEG_REPR: return d0 * (d1 * (REPR_MAX + 2) + 4) + 2;
+        case SEG_G5: return d0 * 16 + 3;
+    }
+    return -1;
+}
+
+// Write `count` segments one after another into out, which holds the sum
+// of their aefs_json_bound; segment i is kinds[i] over data[i] with dims
+// dims[2i], dims[2i+1]:
+//   SEG_TEXT  d0 bytes, copied;
+//   SEG_REPR  a (d0, d1) row-major float32 array as json.dumps writes its
+//             list of lists;
+//   SEG_G5    d0 float32s as aefs_json_f32_array writes them, over up to
+//             `threads` threads.
+// Returns the bytes written.  stats gets the SEG_G5 segments' fallbacks
+// and slices (summed), and the CLOCK_MONOTONIC ns at the start of the
+// first SEG_G5 and at the end of the last (0, 0 without one).
+int64_t aefs_json_reply(int64_t count, const int32_t* kinds, const void* const* data,
+                        const int64_t* dims, char* out, int threads, int64_t* stats) {
+    char* p = out;
+    stats[0] = stats[1] = stats[2] = stats[3] = 0;
+    for (int64_t i = 0; i < count; ++i) {
+        int64_t d0 = dims[2 * i], d1 = dims[2 * i + 1];
+        const float* x = (const float*)data[i];
+        switch (kinds[i]) {
+            case SEG_TEXT:
+                if (d0) std::memcpy(p, data[i], d0);
+                p += d0;
+                break;
+            case SEG_REPR:
+                *p++ = '[';
+                for (int64_t r = 0; r < d0; ++r) {
+                    if (r) {
+                        *p++ = ',';
+                        *p++ = ' ';
+                    }
+                    p = repr_list(x + r * d1, d1, p);
+                }
+                *p++ = ']';
+                break;
+            case SEG_G5: {
+                if (!stats[2]) stats[2] = now_ns();
+                int64_t fb, sl;
+                p += aefs_json_f32_array(x, d0, p, threads, &fb, &sl);
+                stats[0] += fb;
+                stats[1] += sl;
+                stats[3] = now_ns();
+                break;
+            }
+        }
+    }
+    return (int64_t)(p - out);
+}
 
 // Serialize n float32s as "[v0,v1,...]" into out, which holds at least
 // n*16 + 3 bytes, over up to `threads` threads (1 below SPLIT values; at

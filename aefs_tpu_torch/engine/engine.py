@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import asyncio
 import itertools
-import json
 import os
 import queue
 import threading
@@ -795,31 +794,26 @@ class AudioEngine:
 
                     with TRACER.span("front.analysis", rid):
                         try:
-                            analysis = PlotAnalyzer(fs, device=self.device).analyze_file(
+                            analysis = PlotAnalyzer(fs, device=self.device).analyze_file_arrays(
                                 mono[:, 0], processed.mean(axis=1)
                             )
                         except RuntimeError as e:
                             print(f"Warning: file analysis unavailable: {e}")
                 with TRACER.span("front.serialize", rid):
                     wav_bytes = encode_wav_int16(processed, fs)
-                    b64 = native.b64encode(wav_bytes).decode("ascii")
-                    head_dict = {
+                    head = {
                         "type": "file_processed",
                         "original_b64": contents,
-                        "processed_b64": f"data:audio/wav;base64,{b64}",
+                        "processed_b64": b"data:audio/wav;base64," + native.b64encode(wav_bytes),
                         "sample_rate": int(fs),
                     }
                     if analysis is not None:
-                        head_dict["analysis"] = analysis
-                    head = json.dumps(head_dict)
-                    with TRACER.span("front.samples", rid):
-                        original = jsonfmt.json_f32_array(mono.flatten())
-                        mixed = jsonfmt.json_f32_array(processed.mean(axis=1))
-                    return (
-                        head[:-1]
-                        + ',"original_samples":' + original
-                        + ',"processed_samples":' + mixed
-                        + "}"
+                        head["analysis"] = analysis
+                    return jsonfmt.reply(
+                        head,
+                        {"original_samples": mono.flatten(),
+                         "processed_samples": processed.mean(axis=1)},
+                        "front.samples", rid,
                     )
 
             reply = await loop.run_in_executor(None, serialize)

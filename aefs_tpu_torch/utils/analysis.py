@@ -95,17 +95,18 @@ class PlotAnalyzer:
             ring[-n:] = chunk
         return ring
 
-    def analyze_file(self, original, processed, max_windows: int = 120,
-                     min_hop_s: float = 0.25):
+    def analyze_file_arrays(self, original, processed, max_windows: int = 120,
+                            min_hop_s: float = 0.25):
         """Windowed analysis of a whole file for playback scrubbing: one
         window per ``hop_s`` ships with the ``file_processed`` payload and
         the UI indexes windows by playback time.  Window w analyzes the
         FFT_SIZE samples ENDING at (w+1)*hop — the trailing-window
         semantics of the live plots.
 
-        original, processed: (N,) mono float32.  Returns a JSON-ready dict
-        {hop_s, freqs, original: {spectrum_db (W, P), chroma (W, 12)},
-        processed: {...}}.
+        original, processed: (N,) mono float32.  Returns {hop_s, freqs,
+        original: {spectrum_db (W, P), chroma (W, 12)}, processed: {...}},
+        each array float32 rounded (2 and 4 decimals) as the payload
+        carries it; ``engine/jsonfmt.py:reply`` writes it as JSON.
         """
         n = int(len(processed))
         fs = self.fs
@@ -119,10 +120,16 @@ class PlotAnalyzer:
             padded = np.concatenate([np.zeros(FFT_SIZE, np.float32), sig])
             frames = padded[ends[:, None] + np.arange(FFT_SIZE)[None, :]]
             specs, chromas = self._analyze(np.ascontiguousarray(frames))
-            out[name] = {
-                "spectrum_db": specs.round(2).tolist(),
-                "chroma": chromas.round(4).tolist(),
-            }
+            out[name] = {"spectrum_db": specs.round(2), "chroma": chromas.round(4)}
+        return out
+
+    def analyze_file(self, original, processed, max_windows: int = 120,
+                     min_hop_s: float = 0.25):
+        """``analyze_file_arrays`` as a JSON-ready dict: its arrays as
+        lists of Python floats."""
+        out = self.analyze_file_arrays(original, processed, max_windows, min_hop_s)
+        for name in ("original", "processed"):
+            out[name] = {k: v.tolist() for k, v in out[name].items()}
         return out
 
     def update(self, in_chunk, out_chunk):

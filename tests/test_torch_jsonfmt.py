@@ -5,8 +5,8 @@ the limits of the fast path, the switches of "%g"'s notation, a decimal
 tie, every decoded 16-bit sample, random bit patterns, lengths around the
 threaded split and an array split over several slices; a failed build
 falls back to the same bytes; the upload reply of the demo is the same
-bytes through either formatter, with its ``front.samples`` span and no
-value handed to ``snprintf``."""
+bytes through the native writer and without the library, with its
+``front.samples`` span and no value handed to ``snprintf``."""
 
 import asyncio
 import base64
@@ -154,5 +154,5 @@ def test_the_demo_upload_reply_is_the_same_bytes(monkeypatch):
     assert ex["counters"] == {**ex["counters"], "jsonfmt.values": n, "jsonfmt.fallbacks": 0,
                               "jsonfmt.slices": 2 * jsonfmt.THREADS}
 
-    monkeypatch.setattr(jsonfmt, "json_f32_array", native.json_f32_array)
+    monkeypatch.setattr(jsonfmt, "_lib", False)  # json.dumps and native.json_f32_array
     assert _demo_reply(url) == reply
