@@ -20,10 +20,13 @@
 // exponent digits at least), trailing zeros and a bare point dropped.
 // Subnormals and |v| >= 1e9 are handed to snprintf itself, and counted.
 //
-// An array of at least SPLIT values is formatted in slices, one thread
-// each: slice i writes its text (commas inside it) into its own region of
-// 16 bytes a value of the output, and the regions are then moved together
-// with a comma between.  Shorter arrays run on the calling thread.
+// An array of at least SPLIT values is formatted in PIECES slices per
+// thread, which the threads (the caller among them) take in turn from a
+// shared counter: a thread that starts late or loses its core holds up one
+// slice, not a fixed share of the array.  Slice i writes its text (commas
+// inside it) into its own region of 16 bytes a value of the output, and
+// the regions are then moved together with a comma between.  Shorter
+// arrays run on the calling thread.
 //
 // aefs_json_reply writes a whole reply into one buffer in one call: a list
 // of segments, each verbatim text, a float32 array in "%.5g" (the above),
@@ -35,6 +38,7 @@
 // ", " between items.  aefs_json_plain tells whether a string's bytes go
 // into JSON as they are.
 
+#include <atomic>
 #include <charconv>
 #include <cmath>
 #include <cstdint>
@@ -50,6 +54,7 @@ namespace {
 typedef unsigned __int128 u128;
 
 constexpr int64_t SPLIT = 1 << 16;
+constexpr int64_t PIECES = 8;  // slices a thread
 constexpr uint64_t P10[] = {1ull, 10ull, 100ull, 1000ull, 10000ull, 100000ull};
 
 // 5^k, k = 0 .. 42 (5^42 < 2^98).
@@ -353,31 +358,28 @@ int64_t aefs_json_reply(int64_t count, const int32_t* kinds, const void* const* 
 
 // Serialize n float32s as "[v0,v1,...]" into out, which holds at least
 // n*16 + 3 bytes, over up to `threads` threads (1 below SPLIT values; at
-// most 64, so no slice is empty).
+// most 64), in PIECES slices a thread (so no slice is empty).
 // Returns the bytes written, the NUL left out; *fallbacks gets the values
 // handed to snprintf and *slices the slices used.
 int64_t aefs_json_f32_array(const float* data, int64_t n, char* out, int threads,
                             int64_t* fallbacks, int64_t* slices) {
-    int64_t s = (n >= SPLIT && threads > 1) ? (threads < 64 ? threads : 64) : 1;
+    int64_t t = (n >= SPLIT && threads > 1) ? (threads < 64 ? threads : 64) : 1;
+    int64_t s = t > 1 ? t * PIECES : 1;
     std::vector<char*> ends(s);
     std::vector<int64_t> fb(s, 0);
     auto lo = [&](int64_t i) { return n * i / s; };
-    auto slice = [&](int64_t i) {
-        ends[i] = format_run(data + lo(i), lo(i + 1) - lo(i), out + 1 + lo(i) * 16, &fb[i]);
+    std::atomic<int64_t> next{0};
+    auto work = [&]() {
+        for (int64_t i; (i = next.fetch_add(1, std::memory_order_relaxed)) < s;)
+            ends[i] = format_run(data + lo(i), lo(i + 1) - lo(i), out + 1 + lo(i) * 16, &fb[i]);
     };
-    if (s == 1) {
-        slice(0);
-    } else {
-        std::vector<std::thread> pool;
-        int64_t started = 1;
-        try {
-            for (; started < s; ++started) pool.emplace_back(slice, started);
-        } catch (const std::system_error&) {  // no thread to be had: no exception
-        }                                      // may leave this C entry point
-        for (int64_t i = started; i < s; ++i) slice(i);
-        slice(0);
-        for (auto& t : pool) t.join();
-    }
+    std::vector<std::thread> pool;
+    try {
+        for (int64_t k = 1; k < t; ++k) pool.emplace_back(work);
+    } catch (const std::system_error&) {  // no thread to be had: no exception
+    }                                      // may leave this C entry point
+    work();
+    for (auto& th : pool) th.join();
     out[0] = '[';
     char* p = ends[0];
     *fallbacks = fb[0];

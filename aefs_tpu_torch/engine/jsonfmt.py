@@ -5,10 +5,11 @@
 and bytes: float32 1-D in, ``[v0,v1,...]`` out, each value as "%.5g"
 writes it, NaN and +-inf as ``0``.  The C++ rounds each value to five
 digits in exact integer arithmetic instead of calling ``snprintf``, and
-splits an array of 2^16 values or more over up to ``THREADS`` threads
-inside the one call (ctypes releases the GIL around it): the upload
-reply's two 892,800-value arrays.  The plot pump's and the pool's
-256-sample replies run on the calling thread.
+splits an array of 2^16 values or more into 8 slices a thread for up to
+``THREADS`` threads, which take them in turn, inside the one call (ctypes
+releases the GIL around it): the upload reply's two 892,800-value
+arrays.  The plot pump's and the pool's 256-sample replies run on the
+calling thread.
 
 The source builds with g++ at first use into
 ``build/aefs_tpu_torch/libaefs_jsonfmt-<hash>.so`` (the hash covers the
@@ -32,6 +33,10 @@ reply; ``jsonfmt.reply_writes`` (replies written natively),
 ``jsonfmt.reply_fallbacks`` (replies built by ``json.dumps``) and
 ``jsonfmt.escaped_strings`` (a native reply's strings that needed
 escaping).
+
+A reply's buffer is kept for the next reply (``_spare``), so the pages
+of a ~30 MB reply are mapped and faulted in once per process, not once
+per upload.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ THREADS = min(len(os.sched_getaffinity(0)), 8)
 
 _lib = None  # the library, or False once its build or load failed
 _lock = threading.Lock()
+_spare = []  # reply buffers between replies (list.pop/append: one per caller)
 
 
 def build() -> Path:
@@ -205,7 +211,13 @@ def reply(head: dict, arrays: dict, span: str | None = None, rid=None) -> str:
     kinds = np.array([k for k, _a, _d0, _d1 in segs], np.int32)
     ptrs = np.array([a.ctypes.data for _k, a, _d0, _d1 in segs], np.uintp)
     dims = np.array([(d0, d1) for _k, _a, d0, d1 in segs], np.int64)
-    buf = np.empty(sum(lib.aefs_json_bound(k, d0, d1) for k, _a, d0, d1 in segs), np.uint8)
+    need = sum(lib.aefs_json_bound(k, d0, d1) for k, _a, d0, d1 in segs)
+    try:
+        buf = _spare.pop()
+    except IndexError:
+        buf = None
+    if buf is None or buf.size < need:
+        buf = np.empty(need, np.uint8)
     stats = np.zeros(4, np.int64)
     n = lib.aefs_json_reply(len(segs), kinds.ctypes.data, ptrs.ctypes.data, dims.ctypes.data,
                             buf.ctypes.data, THREADS, stats.ctypes.data)
@@ -215,4 +227,7 @@ def reply(head: dict, arrays: dict, span: str | None = None, rid=None) -> str:
     TRACER.count("jsonfmt.slices", int(stats[1]))
     if span and TRACER.enabled and stats[2]:
         TRACER.record(span, rid, int(stats[2]), int(stats[3]))
-    return str(memoryview(buf)[:n], "ascii")
+    text = str(memoryview(buf)[:n], "ascii")
+    if len(_spare) < 2:
+        _spare.append(buf)
+    return text

@@ -75,7 +75,33 @@ def test_an_odd_length_splits_over_several_slices(monkeypatch):
         TRACER.disable()
         TRACER.reset()
     assert text == native.json_f32_array(arr)
-    assert counters == {"jsonfmt.values": n, "jsonfmt.fallbacks": 0, "jsonfmt.slices": 5}
+    # 8 slices a thread (csrc/json_f32.cpp: PIECES), taken in turn by the 5
+    assert counters == {"jsonfmt.values": n, "jsonfmt.fallbacks": 0, "jsonfmt.slices": 40}
+
+
+def _slices(threads):
+    """The slices of an array of 2^16 values or more: 8 a thread
+    (csrc/json_f32.cpp: PIECES), one on a single thread."""
+    return 8 * threads if threads > 1 else 1
+
+
+@pytest.mark.parametrize("threads", [1, 2, 3, 8, 64, 65])
+def test_every_thread_count_gives_the_same_bytes_and_its_slices(monkeypatch, threads):
+    monkeypatch.setattr(jsonfmt, "THREADS", threads)
+    n = 2 ** 16 + 4099
+    arr = (0.4 * np.random.default_rng(threads).standard_normal(n)).astype(np.float32)
+    arr[::61] = np.float32(2e-45)  # subnormals: snprintf, in every slice
+    TRACER.reset()
+    TRACER.enable()
+    try:
+        text = jsonfmt.json_f32_array(arr)
+        counters = TRACER.export()["counters"]
+    finally:
+        TRACER.disable()
+        TRACER.reset()
+    assert text == native.json_f32_array(arr)
+    assert counters["jsonfmt.fallbacks"] == len(arr[::61])
+    assert counters["jsonfmt.slices"] == _slices(min(threads, 64))
 
 
 def test_values_off_the_fast_path_are_counted():
@@ -152,7 +178,7 @@ def test_the_demo_upload_reply_is_the_same_bytes(monkeypatch):
     msg = json.loads(reply)
     n = len(msg["original_samples"]) + len(msg["processed_samples"])
     assert ex["counters"] == {**ex["counters"], "jsonfmt.values": n, "jsonfmt.fallbacks": 0,
-                              "jsonfmt.slices": 2 * jsonfmt.THREADS}
+                              "jsonfmt.slices": 2 * _slices(jsonfmt.THREADS)}
 
     monkeypatch.setattr(jsonfmt, "_lib", False)  # json.dumps and native.json_f32_array
     assert _demo_reply(url) == reply

@@ -251,3 +251,25 @@ def test_other_dtypes_and_keys_go_through_json_dumps():
     head = {"f64": np.array([0.1, 1e-7]), "i": np.arange(3), 1: "int key", "s": b"raw"}
     assert jsonfmt.reply(head, {"z": np.zeros(2, np.float32)}) == (
         json.dumps(jsonfmt.plain(head))[:-1] + ',"z":[0,0]}')
+
+
+def test_a_reply_reuses_the_last_buffer_and_none_of_its_old_text(monkeypatch):
+    """Replies in a row write into one buffer while it is large enough; a
+    shorter reply after a longer one carries nothing of the longer's text,
+    and a longer one gets a larger buffer."""
+    monkeypatch.setattr(jsonfmt, "_spare", [])
+    rng = np.random.default_rng(11)
+
+    def one(n, tag):
+        head = {"type": tag, "analysis": {"a": rng.standard_normal((3, 4)).astype(np.float32)}}
+        arr = (0.3 * rng.standard_normal(n)).astype(np.float32)
+        got = jsonfmt.reply(head, {"s": arr})
+        assert got == json.dumps(jsonfmt.plain(head))[:-1] + ',"s":' + \
+            native.json_f32_array(arr) + "}"
+        return jsonfmt._spare[-1]
+
+    first = one(2 ** 16 + 5, "a")
+    assert one(300, "b") is first
+    assert one(2 ** 16 + 5, "c") is first
+    assert one(2 ** 17, "d") is not first
+    assert len(jsonfmt._spare) == 1
