@@ -16,13 +16,14 @@ blockwise end-of-file state exactly.  On a mesh with a model axis
 Spans and counters (``utils/metrics.py:TRACER``, rid None): ``convreverb.build``
 (the IR, its partition spectra and their copy to the device, in
 ``__init__``); per ``process_file`` call, ``convreverb.ir_spectrum`` (the
-host's float64 transform of the IR), ``convreverb.conv`` (the forward
-transform, the product and the inverse as the host enqueues them: no
-device wait, so on the card this is enqueue time) and ``convreverb.state``
-(the end-of-file delay line's rebuild); counters ``convreverb.file_renders``
-(files in the call) and ``convreverb.host_fft_points`` (nfft times the IR's
-channels, transformed on the host).  ``process``, the captured streaming
-step, has none.
+IR's float64 transform on the chain's device), ``convreverb.conv`` (the
+forward transform, the product and the inverse) and ``convreverb.state``
+(the end-of-file delay line's rebuild), each as the host enqueues it: no
+device wait, so on the card these are enqueue times; counters
+``convreverb.file_renders`` (files in the call) and
+``convreverb.device_fft_points`` (nfft times the IR's channels, transformed
+by ``torch.fft`` on the chain's device).  ``process``, the captured
+streaming step, has none.
 """
 
 from __future__ import annotations
@@ -82,8 +83,9 @@ class ConvReverb(EffectModel):
             # (C, P, hop+1) complex64 partition spectra: static weights.
             self.ir_spectra = torch.complex(*torch.from_numpy(spectra).to(device).unbind(1))
             self.partitions = spectra.shape[2]
-        # Time-domain IR kept host-side for the whole-file path.
+        # Time-domain IR (padded as above: it sets the file path's nfft).
         self._ir_time = ir
+        self._ir_dev = {}  # device -> the time-domain IR there
         self._ir_parts = {}  # (device, lo, hi) -> partition spectra there
 
     def init_state(self):
@@ -115,15 +117,26 @@ class ConvReverb(EffectModel):
             self._ir_parts[key] = self.ir_spectra[..., lo:hi, :].contiguous().to(device)
         return self._ir_parts[key]
 
+    def _ir_spectrum(self, nfft, device):
+        """The IR's length-nfft spectrum on ``device``: the float32 IR (copied
+        there at first use and kept) promoted exactly to float64, one full
+        float64 transform, rounded once to complex64.  (C, nfft)."""
+        key = str(device)
+        if key not in self._ir_dev:
+            self._ir_dev[key] = torch.from_numpy(np.ascontiguousarray(self._ir_time)).to(device)
+        return torch.fft.fft(self._ir_dev[key].to(torch.float64), nfft).to(torch.complex64)
+
     def process_file(self, state, p, x):
         """One length-nfft FFT convolution, nfft = next_pow2(N + L), with the
-        IR spectrum computed host-side in float64 and rounded to complex64,
-        once per call (a batched render's files share it).  The carried
-        state is rebuilt exactly (in_tail = the last hop; the spectra of the
-        last P-1 overlap-save frames of the zero-extended input), so
-        blockwise processing resumes seamlessly.  x: (C, N), or (F, C, N)
-        for F files.  The ``convreverb.conv`` span times the host's enqueue
-        of the transforms and the product, not the device's work."""
+        IR spectrum transformed on x's device in float64 and rounded to
+        complex64 (``_ir_spectrum``), once per call (a batched render's files
+        share it): no host transform, no copy of a spectrum to the device.
+        The carried state is rebuilt exactly (in_tail = the last hop; the
+        spectra of the last P-1 overlap-save frames of the zero-extended
+        input), so blockwise processing resumes seamlessly.  x: (C, N), or
+        (F, C, N) for F files.  The ``convreverb.ir_spectrum`` and
+        ``convreverb.conv`` spans time the host's enqueue of the transforms
+        and the product, not the device's work."""
         n = x.shape[-1]
         hop = self.hop
         if n % hop != 0 or n < hop:
@@ -131,11 +144,11 @@ class ConvReverb(EffectModel):
         TRACER.count("convreverb.file_renders", x.shape[0] if x.dim() == 3 else 1)
         nfft = 1 << int(np.ceil(np.log2(n + self._ir_time.shape[1])))
         with TRACER.span("convreverb.ir_spectrum"):
-            h_spec = np.fft.fft(self._ir_time.astype(np.float64), nfft).astype(np.complex64)
-        TRACER.count("convreverb.host_fft_points", nfft * self._ir_time.shape[0])
+            h_spec = self._ir_spectrum(nfft, x.device)
+        TRACER.count("convreverb.device_fft_points", nfft * self._ir_time.shape[0])
         with TRACER.span("convreverb.conv"):
             xs = torch.fft.fft(x, nfft)
-            wet = torch.fft.ifft(xs * torch.from_numpy(h_spec).to(x.device)).real[..., :n]
+            wet = torch.fft.ifft(xs * h_spec).real[..., :n]
 
         pparts = self.partitions
         with TRACER.span("convreverb.state"):

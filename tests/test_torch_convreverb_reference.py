@@ -2,18 +2,21 @@
 (``benchmark/reference/convreverb.py``) against the port: its IR is the
 program's, the 256-sample streaming step, the whole-file pass through the
 engine (one file and a batch of two) and the preset's 2.5 s IR agree with
-it, and an output rounded to bfloat16 does not.  The effect's spans and
-counters: once per whole-file render, none while the tracer is off, and
-the render the same bytes either way."""
+it, and an output rounded to bfloat16 does not.  The whole-file path's IR
+spectrum: a float64 transform on the chain's device, rounded once to
+complex64, with no NumPy FFT and one kept copy of the IR.  The effect's
+spans and counters: once per whole-file render, none while the tracer is
+off, and the render the same bytes either way."""
 
 import numpy as np
 import pytest
 import torch
 
 from aefs_tpu_torch.core.chain import build_chain
-from aefs_tpu_torch.core.config import DEFAULT_PRESETS
+from aefs_tpu_torch.core.config import DEFAULT_PRESETS, FILE_SUPERBLOCK
+from aefs_tpu_torch.core.fileopts import file_static_overrides
 from aefs_tpu_torch.engine.engine import process_offline, render_batch
-from aefs_tpu_torch.models.convreverb import synthetic_ir
+from aefs_tpu_torch.models.convreverb import ConvReverb, synthetic_ir
 from aefs_tpu_torch.utils.metrics import TRACER
 from benchmark.reference import convreverb as ref
 from benchmark.refchain import render_mono, run_chain
@@ -106,6 +109,64 @@ def test_a_bfloat16_output_fails_the_tolerance():
     assert err_dbfs(rounded, want) > PORT_DBFS + 40
 
 
+# -- the whole-file path's IR spectrum --------------------------------------
+
+def _within_two_ulps(got, want):
+    """Each real and imaginary part of ``got`` within two float32 ulps of
+    ``want``'s (``np.spacing``), or within 2^-40 of max|want| where the part
+    is near zero."""
+    floor = 2.0 ** -40 * np.abs(want).max()
+    return all(np.all(np.abs(g.astype(np.float64) - w) <= np.maximum(2 * np.spacing(np.abs(w)), floor))
+               for g, w in ((got.real, want.real), (got.imag, want.imag)))
+
+
+@pytest.mark.parametrize("model", [
+    lambda: ConvReverb(FS, FILE_SUPERBLOCK, ir_seconds=2.5),
+    # 47 partitions of 256 padded to 49: the padding is part of the IR.
+    lambda: ConvReverb(FS, 256, ir_seconds=0.25, partition_multiple=4),
+], ids=["hall", "padded"])
+def test_the_ir_spectrum_is_numpys_float64_transform_rounded_once(model):
+    model = model()
+    ir = model._ir_time
+    got = model._ir_spectrum(2 ** 18, "cpu")
+    assert got.dtype == torch.complex64 and tuple(got.shape) == (2, 2 ** 18)
+    want = np.fft.fft(ir.astype(np.float64), 2 ** 18).astype(np.complex64)
+    assert _within_two_ulps(got.numpy(), want)
+
+
+def _hall_chain():
+    """The preset as ``process_offline`` builds it for a file."""
+    return build_chain(HALL, FS, FILE_SUPERBLOCK, channels_in=1, channels_out=2,
+                       static_overrides=file_static_overrides(HALL), device="cpu")
+
+
+def test_a_file_render_calls_no_numpy_fft(monkeypatch):
+    x = noise(5 * 4096, seed=4)
+    want = process_offline(HALL, x, FS, device="cpu")[1]
+    chain, state, tmap = _hall_chain()  # the build's partition spectra use np.fft
+
+    def refuse(*_a, **_k):
+        raise AssertionError("np.fft called on the whole-file path")
+    for name in ("fft", "ifft", "rfft", "irfft", "fftn", "ifftn", "rfftn", "irfftn",
+                 "fft2", "rfft2", "hfft", "ihfft"):
+        monkeypatch.setattr(np.fft, name, refuse)
+    mono = x.mean(axis=1, keepdims=True).astype(np.float32)
+    got = np.clip(chain.process_array(state, chain.targets(tmap), mono, fast=True)[1], -1, 1)
+    assert got.tobytes() == want.tobytes()
+
+
+def test_two_renders_make_one_device_copy_of_the_ir():
+    chain, state, tmap = _hall_chain()
+    model = chain.effects[0][1]
+    assert model._ir_dev == {}
+    mono = noise(5 * 4096, channels=1, seed=6)
+    chain.process_array(state, chain.targets(tmap), mono, fast=True)
+    (key, copy), = model._ir_dev.items()
+    assert key == "cpu" and np.array_equal(copy.numpy(), model._ir_time)
+    chain.process_array(state, chain.targets(tmap), mono[: 4 * 4096], fast=True)
+    assert list(model._ir_dev) == ["cpu"] and model._ir_dev["cpu"] is copy
+
+
 # -- the spans and counters ------------------------------------------------------
 
 def _spans(ex):
@@ -124,7 +185,8 @@ def test_a_file_render_spans_and_counts_once(tracer):
     assert all(a[1] <= b[0] for a, b in zip(starts, starts[1:]))  # in order, apart
     # nfft = 2^18 >= 20,480 + 120,000 samples, for each of the IR's 2 channels
     assert ex["counters"]["convreverb.file_renders"] == 1
-    assert ex["counters"]["convreverb.host_fft_points"] == 2 * 2 ** 18
+    assert ex["counters"]["convreverb.device_fft_points"] == 2 * 2 ** 18
+    assert "convreverb.host_fft_points" not in ex["counters"]
 
 
 def test_a_batch_counts_its_files_and_spans_once(tracer):
@@ -132,7 +194,8 @@ def test_a_batch_counts_its_files_and_spans_once(tracer):
     ex = tracer.export()
     assert _spans(ex) == dict.fromkeys(("convreverb.build",) + SPANS, 1)
     assert ex["counters"]["convreverb.file_renders"] == 2
-    assert ex["counters"]["convreverb.host_fft_points"] == 2 * 2 ** 15
+    assert ex["counters"]["convreverb.device_fft_points"] == 2 * 2 ** 15
+    assert "convreverb.host_fft_points" not in ex["counters"]
 
 
 def test_a_streaming_block_keeps_no_convreverb_span(tracer):
