@@ -766,7 +766,9 @@ class AudioEngine:
         ``front.upload`` from ``taken`` (the ``TRACER.clock()`` read when
         the backend's handler took the message; else now) until ``send``
         returns; its rid names the upload's spans on both sides of the
-        executor hop."""
+        executor hop.  Each of the two hops is kept as two ``front.hop``
+        spans: the submit to the worker's start, and the worker's return to
+        this coroutine running again."""
         upload = TRACER.span("front.upload", next(self._uploads), taken)
         if self.is_processing_file:
             print("Warning. A file is already being process. Ignoring new request")
@@ -784,7 +786,9 @@ class AudioEngine:
             with TRACER.span("front.decode", rid):
                 audio, fs = _decode_data_url(contents)
             loop = asyncio.get_running_loop()
-            mono, processed = await loop.run_in_executor(None, self._render, audio, fs, rid)
+            render = TRACER.hop("front.hop", rid, self._render)
+            mono, processed = await loop.run_in_executor(None, render, audio, fs, rid)
+            TRACER.landed(render)
 
             def serialize():
                 analysis = None
@@ -800,23 +804,29 @@ class AudioEngine:
                         except RuntimeError as e:
                             print(f"Warning: file analysis unavailable: {e}")
                 with TRACER.span("front.serialize", rid):
-                    wav_bytes = encode_wav_int16(processed, fs)
+                    with TRACER.span("front.wav", rid):
+                        wav_bytes = encode_wav_int16(processed, fs)
+                    with TRACER.span("front.b64", rid):
+                        processed_b64 = b"data:audio/wav;base64," + native.b64encode(wav_bytes)
                     head = {
                         "type": "file_processed",
                         "original_b64": contents,
-                        "processed_b64": b"data:audio/wav;base64," + native.b64encode(wav_bytes),
+                        "processed_b64": processed_b64,
                         "sample_rate": int(fs),
                     }
                     if analysis is not None:
                         head["analysis"] = analysis
-                    return jsonfmt.reply(
-                        head,
-                        {"original_samples": mono.flatten(),
-                         "processed_samples": processed.mean(axis=1)},
-                        "front.samples", rid,
-                    )
+                    with TRACER.span("front.reply", rid):
+                        return jsonfmt.reply(
+                            head,
+                            {"original_samples": mono.flatten(),
+                             "processed_samples": processed.mean(axis=1)},
+                            "front.samples", rid,
+                        )
 
+            serialize = TRACER.hop("front.hop", rid, serialize)
             reply = await loop.run_in_executor(None, serialize)
+            TRACER.landed(serialize)
             with TRACER.span("front.send", rid):
                 await websocket.send(reply)
             TRACER.count("front.uploads")

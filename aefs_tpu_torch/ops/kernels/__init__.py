@@ -36,8 +36,6 @@ from pathlib import Path
 
 import torch
 
-from aefs_tpu_torch.utils.metrics import TRACER
-
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "aefs_tpu_torch"
@@ -86,7 +84,6 @@ def build() -> Path:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
                            f"{res.stdout}\n{res.stderr}")
     os.replace(tmp, so)
-    TRACER.count("kernels.builds")
     return so
 
 

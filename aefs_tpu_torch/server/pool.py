@@ -740,19 +740,6 @@ class _Batcher:
             if not fut.done():
                 fut.set_exception(RuntimeError(f"pool step failed: {e}"))
 
-    @staticmethod
-    def _in_executor(gen, fn, *args):
-        """``fn(*args)`` for ``run_in_executor``, its wait for a worker
-        thread (the executor is shared with the front) timed as
-        ``pool.executor`` of generation ``gen``."""
-        called = TRACER.clock()
-
-        def call():
-            TRACER.record("pool.executor", gen, called, TRACER.clock())
-            return fn(*args)
-
-        return call
-
     async def run(self):
         """Collect submissions arriving close together into one dispatch.
 
@@ -795,7 +782,7 @@ class _Batcher:
                 TRACER.count("pool.idle_flushes")
                 try:
                     outs = await loop.run_in_executor(
-                        None, self._in_executor(prev_gen, self.pool.flush_pipeline))
+                        None, TRACER.hop("pool.executor", prev_gen, self.pool.flush_pipeline))
                 except Exception as e:
                     TRACER.count("pool.failed_steps")
                     self._fail(prev, e)
@@ -817,7 +804,8 @@ class _Batcher:
             if pipelined:
                 try:
                     outs = await loop.run_in_executor(
-                        None, self._in_executor(gen, self.pool.step_blocks_pipelined, blocks))
+                        None, TRACER.hop("pool.executor", gen, self.pool.step_blocks_pipelined),
+                        blocks)
                 except Exception as e:
                     # A failed step must kill neither the batcher task (every
                     # later submission would hang on a dead queue) nor the
@@ -834,7 +822,7 @@ class _Batcher:
             else:
                 try:
                     outs = await loop.run_in_executor(
-                        None, self._in_executor(gen, self.pool.step_blocks, blocks))
+                        None, TRACER.hop("pool.executor", gen, self.pool.step_blocks), blocks)
                 except Exception as e:
                     TRACER.count("pool.failed_steps")
                     self._fail(batch, e)

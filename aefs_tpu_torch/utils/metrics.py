@@ -10,12 +10,20 @@ spans and counters (port of aefs_tpu/utils/metrics.py).
   in memory, in one bounded ring per name, on ``time.perf_counter_ns``;
   nothing is written to disk.  While a ``torch.profiler`` session runs, an
   enabled tracer's span also opens a host range of its name, so it lies on
-  the profiler's host timeline beside the device's records.
+  the profiler's host timeline beside the device's records.  The profiler
+  keeps the ranges of the thread that started it alone; ``export()``
+  carries the offset from the rings' clock to the profiler's (unix
+  nanoseconds), so a span of any thread can be put on that timeline.
+- ``TRACER.hop(name, rid, fn)``: ``fn`` for ``run_in_executor``, its wait
+  for a worker thread kept as span ``name``; ``TRACER.landed(call)``
+  after the ``await`` keeps the way back, from ``fn``'s return to the
+  coroutine running again.
 
 The tracer records only while it is enabled (``TRACER.enable()``, or
 ``AEFS_TRACE=1`` in the environment at import); a profiler session alone
 does not turn it on.  Disabled, ``span`` returns one shared no-op span (no
-clock read, no allocation) and ``count`` returns at once.
+clock read, no allocation), ``hop`` returns ``fn`` itself, and ``count``
+and ``landed`` return at once.
 ``get_stats`` (server/backend.py) and ``get_pool_stats`` (server/pool.py)
 carry ``TRACER.snapshot()`` under ``"trace"`` while it is enabled.
 """
@@ -40,6 +48,20 @@ from torch._C._profiler import _RecordFunctionFast
 # Entries per span name: a 30 s window of 256-sample blocks at 48 kHz is
 # 5,625 blocks.
 RING = 16384
+
+
+def trace_offset_ns() -> int:
+    """``time.time_ns()`` (the profiler's clock) less ``perf_counter_ns()``
+    (the rings'), from the tightest of five reads of the one between two
+    of the other."""
+    best = None
+    for _ in range(5):
+        a = time.perf_counter_ns()
+        unix = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, unix - (a + b) // 2)
+    return best[1]
 
 
 class _NoSpan:
@@ -96,10 +118,31 @@ class Span:
             self.tracer.record(self.name, self.rid, self.t0, t1)
 
 
+class _Hop:
+    """``fn`` run on an executor's worker: the wait from the submit to the
+    worker's start is kept as span ``name`` of ``rid`` when it starts;
+    ``t1`` is when ``fn`` returned, the start of the way back."""
+
+    __slots__ = ("tracer", "name", "rid", "fn", "t0", "t1")
+
+    def __init__(self, tracer, name, rid, fn):
+        self.tracer, self.name, self.rid, self.fn = tracer, name, rid, fn
+        self.t1 = None
+        self.t0 = time.perf_counter_ns()
+
+    def __call__(self, *args):
+        self.tracer.record(self.name, self.rid, self.t0, time.perf_counter_ns())
+        try:
+            return self.fn(*args)
+        finally:
+            self.t1 = time.perf_counter_ns()
+
+
 class Tracer:
     """Spans in one ring per name, each entry ``(rid, start_ns,
     duration_ns)``; counters by name.  ``dropped`` counts the entries a
-    ring let go when it wrapped."""
+    ring let go when it wrapped.  ``offset_ns`` is ``trace_offset_ns()``
+    as ``reset`` or ``enable`` last read it."""
 
     def __init__(self, capacity: int = RING, enabled: bool = False):
         self.capacity = capacity
@@ -108,6 +151,7 @@ class Tracer:
         self.reset()
 
     def enable(self):
+        self.offset_ns = trace_offset_ns()
         self.enabled = True
 
     def disable(self):
@@ -126,6 +170,19 @@ class Tracer:
         (``BlockTimer``, the pool's ``last_step_ms``, a runner's
         ``capture_s``); it is kept only while the tracer is enabled."""
         return Span(self, name, rid, self.enabled)
+
+    def hop(self, name: str, rid, fn):
+        """``fn`` for ``run_in_executor``, its wait for a worker kept as span
+        ``name`` of ``rid``; ``fn`` itself while the tracer is disabled."""
+        if not self.enabled:
+            return fn
+        return _Hop(self, name, rid, fn)
+
+    def landed(self, call):
+        """After awaiting ``hop``'s ``call``: keeps the way back, from its
+        ``fn``'s return to now, as a second span of its name and rid."""
+        if type(call) is _Hop and call.t1 is not None:
+            self.record(call.name, call.rid, call.t1, time.perf_counter_ns())
 
     def clock(self):
         """``perf_counter_ns()`` while enabled, else None: the start of a
@@ -156,18 +213,22 @@ class Tracer:
     def reset(self):
         with self._lock:
             self._rings, self._totals, self._counters = {}, {}, {}
+            self.offset_ns = trace_offset_ns()
 
     def export(self) -> dict:
         """``{"spans": {name: [[rid, start_ns, end_ns], ...]}, "counters":
-        {name: n}, "dropped": {name: n}}``: enough to compute a layer's
-        self time (its span less the parts its child spans cover)."""
+        {name: n}, "dropped": {name: n}, "clock": {"trace_offset_ns": n}}``:
+        enough to compute a layer's self time (its span less the parts its
+        child spans cover); ``start_ns + n`` is a span's start on the
+        profiler's timeline, from any thread."""
         with self._lock:
             spans = {name: [[rid, t0, t0 + ns] for rid, t0, ns in ring]
                      for name, ring in self._rings.items()}
             dropped = {name: self._totals[name] - len(ring)
                        for name, ring in self._rings.items()}
             counters = dict(self._counters)
-        return {"spans": spans, "counters": counters, "dropped": dropped}
+        return {"spans": spans, "counters": counters, "dropped": dropped,
+                "clock": {"trace_offset_ns": self.offset_ns}}
 
     def snapshot(self) -> dict:
         """Each span's count, p50 and p99 in ms over its ring, the

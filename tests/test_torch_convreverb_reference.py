@@ -202,7 +202,8 @@ def test_a_streaming_block_keeps_no_convreverb_span(tracer):
     chain, state, tmap = build_chain(SHORT, FS, 256, device="cpu")
     tracer.reset()  # the build's span
     chain.process_block(state, chain.targets(tmap), torch.zeros(1, 256))
-    assert tracer.export() == {"spans": {}, "counters": {}, "dropped": {}}
+    assert tracer.export() == {"spans": {}, "counters": {}, "dropped": {},
+                               "clock": {"trace_offset_ns": tracer.offset_ns}}
 
 
 def test_off_records_nothing_and_renders_the_same_bytes(tracer):
@@ -211,5 +212,6 @@ def test_off_records_nothing_and_renders_the_same_bytes(tracer):
     tracer.disable()
     tracer.reset()
     off = process_offline(HALL, x, FS, device="cpu")[1]
-    assert tracer.export() == {"spans": {}, "counters": {}, "dropped": {}}
+    assert tracer.export() == {"spans": {}, "counters": {}, "dropped": {},
+                               "clock": {"trace_offset_ns": tracer.offset_ns}}
     assert on.tobytes() == off.tobytes()

@@ -2,8 +2,12 @@
 off it records nothing and hands out one no-op span; its rings wrap and
 count what they dropped; under a ``torch.profiler`` session an enabled
 span is a host event of its name and duration, and a profiler alone
-turns nothing on; an upload through the backend's
-``handler`` gives each front span once under one request id; the mic
+turns nothing on; a span shifted by the exported clock offset lies on
+the profiler's timeline, from any thread; ``hop`` times an executor's
+two ways and is ``fn`` itself while off; an upload through the backend's
+``handler`` gives each front span once under one request id, its two
+hops four ``front.hop`` spans and its serialize's parts nested inside
+it, and the same reply bytes traced or not; the mic
 path's ``engine.block`` is ``BlockTimer``'s own reading; the pool's
 batcher counts its blocks, drop-late and steps, and ``last_step_ms`` is
 its ``pool.step`` span; a whole-file render spans each effect in turn,
@@ -14,9 +18,11 @@ import asyncio
 import base64
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -118,7 +124,8 @@ def test_off_records_nothing_and_hands_out_one_noop_span():
     tr.count("c", 3)
     tr.record("a", 1, tr.clock(), tr.clock())
     assert tr.clock() is None
-    assert tr.export() == {"spans": {}, "counters": {}, "dropped": {}}
+    assert tr.export() == {"spans": {}, "counters": {}, "dropped": {},
+                           "clock": {"trace_offset_ns": tr.offset_ns}}
 
 
 def test_timed_reads_the_clock_off_and_keeps_only_on():
@@ -160,7 +167,8 @@ def test_export_and_reset():
     assert snap["spans"]["inner"]["p50_ms"] >= 1.0 and snap["counters"] == {"n": 5}
     json.dumps(snap)
     tr.reset()
-    assert tr.export() == {"spans": {}, "counters": {}, "dropped": {}}
+    assert tr.export() == {"spans": {}, "counters": {}, "dropped": {},
+                           "clock": {"trace_offset_ns": tr.offset_ns}}
 
 
 def _host_events(prof, name):
@@ -196,7 +204,8 @@ def test_a_profiler_session_alone_leaves_the_tracer_off():
         tr.count("chain.captures")
         assert tr.clock() is None
     assert _host_events(prof, "chain.replay") == []
-    assert tr.export() == {"spans": {}, "counters": {}, "dropped": {}}
+    assert tr.export() == {"spans": {}, "counters": {}, "dropped": {},
+                           "clock": {"trace_offset_ns": tr.offset_ns}}
 
 
 def test_a_timed_span_opens_a_range_only_when_enabled():
@@ -210,6 +219,99 @@ def test_a_timed_span_opens_a_range_only_when_enabled():
     assert off.ns is not None
     assert len(_host_events(prof, "engine.block")) == 1
     assert [r for r, _s, _e in tr.export()["spans"]["engine.block"]] == [2]
+
+
+def test_a_shifted_span_starts_with_its_mirror_range():
+    tr = Tracer(enabled=True)
+    off = tr.export()["clock"]["trace_offset_ns"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for rid in range(5):
+            with tr.span("front.decode", rid):
+                time.sleep(0.001)
+    mirrors = sorted(ev.start_ns() for ev in _host_events(prof, "front.decode"))
+    starts = [s + off for _r, s, _e in tr.export()["spans"]["front.decode"]]
+    assert len(mirrors) == len(starts) == 5
+    # The median: a thread switch between the range's start and the clock
+    # read may part one pair on a loaded machine.
+    assert statistics.median(abs(a - b) for a, b in zip(mirrors, starts)) < 200_000
+
+
+def test_a_span_on_an_executor_thread_is_exported_on_the_same_clock():
+    tr = Tracer(enabled=True)
+
+    def work():
+        before = time.time_ns()
+        with tr.span("engine.render", 4):
+            time.sleep(0.002)
+        return before, time.time_ns()
+
+    with ThreadPoolExecutor(1) as pool:
+        before, after = pool.submit(work).result()
+    ex = tr.export()
+    off = ex["clock"]["trace_offset_ns"]
+    (rid, s, e), = ex["spans"]["engine.render"]
+    assert rid == 4 and before - 200_000 <= s + off < e + off <= after + 200_000
+    tr.reset()
+    assert tr.export()["clock"]["trace_offset_ns"] == tr.offset_ns
+    assert abs(tr.offset_ns - off) < 200_000
+
+
+def test_the_offset_is_read_at_reset_and_enable(monkeypatch):
+    reads = []
+    monkeypatch.setattr(metrics, "trace_offset_ns", lambda: reads.append(1) or 7 * len(reads))
+    tr = Tracer()
+    assert tr.offset_ns == 7
+    tr.enable()
+    assert tr.export()["clock"] == {"trace_offset_ns": 14}
+    tr.reset()
+    assert tr.export()["clock"] == {"trace_offset_ns": 21} and len(reads) == 3
+
+
+def test_hop_off_is_fn_itself_and_reads_no_clock(monkeypatch):
+    tr = Tracer()
+
+    def fn(x):
+        return x + 1
+
+    def no_clock():
+        raise AssertionError("a clock read")
+
+    with monkeypatch.context() as m:
+        m.setattr(metrics.time, "perf_counter_ns", no_clock)
+        m.setattr(metrics.time, "time_ns", no_clock)
+        call = tr.hop("front.hop", 1, fn)
+        assert call is fn
+        assert asyncio.run(_in_executor(call, 2)) == 3
+        tr.landed(call)
+    assert tr.export()["spans"] == {}
+
+
+async def _in_executor(call, *args):
+    return await asyncio.get_running_loop().run_in_executor(None, call, *args)
+
+
+def test_hop_times_the_way_there_and_the_way_back():
+    tr = Tracer(enabled=True)
+    seen = {}
+
+    def fn(x):
+        seen["start"] = time.perf_counter_ns()
+        time.sleep(0.002)
+        seen["end"] = time.perf_counter_ns()
+        return 2 * x
+
+    async def main():
+        call = tr.hop("front.hop", 9, fn)
+        out = await _in_executor(call, 5)
+        tr.landed(call)
+        return call, out, time.perf_counter_ns()
+
+    call, out, resumed = asyncio.run(main())
+    assert out == 10 and call.fn is fn
+    (r0, a0, a1), (r1, b0, b1) = tr.export()["spans"]["front.hop"]
+    assert r0 == r1 == 9
+    assert a0 == call.t0 <= a1 <= seen["start"]  # the submit to the worker's start
+    assert seen["end"] <= b0 == call.t1 <= b1 <= resumed  # the return to the loop again
 
 
 @pytest.mark.parametrize("env, on", [("1", True), ("0", False), (None, False)])
@@ -242,6 +344,48 @@ def test_an_upload_gives_each_front_span_once_inside_front_upload():
     assert all(a[1] <= b[0] for a, b in zip(ordered, ordered[1:]))  # no two overlap
     assert ex["counters"]["front.uploads"] == 1
     assert ex["counters"]["front.reply_bytes"] == len(reply)
+
+
+def test_an_upload_hops_four_times_and_splits_its_serialize():
+    eng = AudioEngine(device="cpu")
+    eng.build_chain(CFG)
+    asyncio.run(eng.process_wav_file(_url(), _Socket()))
+    eng.close()
+    sp = TRACER.export()["spans"]
+    (rid, u0, u1), = sp["front.upload"]
+    hops = sp["front.hop"]
+    assert len(hops) == 4 and {r for r, _s, _e in hops} == {rid}
+    assert all(u0 <= s <= e <= u1 for _r, s, e in hops)
+    (_r, r0, r1), = sp["engine.render"]
+    (_r, z0, z1), = sp["front.serialize"]
+    # There, the render, back; there, the analysis and the serialize, back.
+    (h0, h1), (h2, h3), (h4, h5), (h6, h7) = sorted((s, e) for _r, s, e in hops)
+    assert h1 <= r0 and r1 <= h2 and h3 <= h4 and h5 <= z0 and z1 <= h6 <= h7 <= u1
+    parts = []
+    for name in ("front.wav", "front.b64", "front.reply"):
+        (r, s, e), = sp[name]
+        assert r == rid and z0 <= s <= e <= z1, name
+        parts.append((s, e))
+    assert all(a[1] <= b[0] for a, b in zip(parts, parts[1:]))  # in turn, apart
+    (r, s, e), = sp["front.samples"]
+    assert r == rid and parts[2][0] <= s <= e <= parts[2][1]
+
+
+def test_the_reply_is_the_same_bytes_traced_or_not():
+    url = _url(0.3)
+    replies = []
+    for on in (True, False, True):
+        TRACER.enable() if on else TRACER.disable()
+        eng = AudioEngine(device="cpu")
+        eng.build_chain(CFG)
+        sock = _Socket()
+        asyncio.run(eng.process_wav_file(url, sock))
+        eng.close()
+        (reply,) = sock.sent
+        replies.append(reply)
+    assert replies[0].startswith('{"type": "file_processed"')
+    assert replies[0] == replies[1] == replies[2]
+    assert len(TRACER.export()["spans"]["front.upload"]) == 2
 
 
 def test_a_direct_upload_opens_its_own_front_span():
@@ -303,13 +447,15 @@ def test_a_file_render_spans_each_effect_in_turn():
 def test_a_file_render_off_records_nothing():
     TRACER.disable()
     _render_file()
-    assert TRACER.export() == {"spans": {}, "counters": {}, "dropped": {}}
+    assert TRACER.export() == {"spans": {}, "counters": {}, "dropped": {},
+                               "clock": {"trace_offset_ns": TRACER.offset_ns}}
 
 
 def test_a_streaming_block_keeps_no_file_span():
     chain, state, tmap = build_chain(FILE_CFG, FS, 256, device="cpu")
     chain.process_block(state, chain.targets(tmap), torch.zeros(1, 256))
-    assert TRACER.export() == {"spans": {}, "counters": {}, "dropped": {}}
+    assert TRACER.export() == {"spans": {}, "counters": {}, "dropped": {},
+                               "clock": {"trace_offset_ns": TRACER.offset_ns}}
 
 
 # -- the pool's batcher ------------------------------------------------------------

@@ -278,7 +278,8 @@ def test_a_batch_counts_its_files_and_spans_once(tracer):
 def test_a_streaming_block_keeps_no_wah_span(tracer):
     chain, state, tmap = build_chain(_wah(FUNKY), FS, 256, device="cpu")
     chain.process_block(state, chain.targets(tmap), torch.zeros(1, 256))
-    assert tracer.export() == {"spans": {}, "counters": {}, "dropped": {}}
+    assert tracer.export() == {"spans": {}, "counters": {}, "dropped": {},
+                               "clock": {"trace_offset_ns": tracer.offset_ns}}
 
 
 def test_off_records_nothing_and_renders_the_same_bytes(tracer):
@@ -288,5 +289,6 @@ def test_off_records_nothing_and_renders_the_same_bytes(tracer):
     tracer.disable()
     tracer.reset()
     off = process_offline(cfg, x, FS, device="cpu")[1]
-    assert tracer.export() == {"spans": {}, "counters": {}, "dropped": {}}
+    assert tracer.export() == {"spans": {}, "counters": {}, "dropped": {},
+                               "clock": {"trace_offset_ns": tracer.offset_ns}}
     assert on.tobytes() == off.tobytes()
